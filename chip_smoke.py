@@ -1,0 +1,293 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (dpgo_ros_tpu_torch).
+
+Run from the repository root on a machine with one CUDA GPU:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero; nothing is caught):
+  1. require CUDA; print the card's name and power limit (nvidia-smi);
+  2. build the RTR block-solve kernel from csrc/rtr_block.cu;
+  3. hold the kernel against its plain PyTorch version on the card, on the
+     2,500-pose 5-robot synthetic sphere (every robot mask and every
+     Parallel colour union), on a 1,000-pose grid3d world (irregular loop
+     closures) and on an SE(2) ring, from noisy states;
+  4. drive the CLI main path (``--demo dpgo_demo --synthetic sphere
+     --synthetic_n 2500 --device cuda``) to its rel-change tolerance with
+     the launch counter zeroed just before, and check cost decrease,
+     launches == block updates, export files and a finite ATE; then run
+     20 fixed iterations on the card (kernel, fp32) and on the CPU (plain
+     path, fp64) from one initial state and compare the cost histories;
+  5. time the kernel and the plain version per solve at these shapes.
+
+The last stdout line is ``{"ok": true, "device": {...}}``; the line before
+it is the kernels JSON (name, route, source, replaced TPU kernel, launches
+in the main-path run, max abs error, ms per solve of kernel and plain).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from dpgo_ros_tpu.io.synthetic import generate_world
+from dpgo_ros_tpu.types import EdgeType, MeasurementBatch, PoseGraphData
+from dpgo_ros_tpu.utils.config import AgentConfig, InitMethod, UpdateRule
+from dpgo_ros_tpu_torch import cli
+from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
+from dpgo_ros_tpu_torch.models.problem import LiftedProblem
+from dpgo_ros_tpu_torch.ops import fused_rtr, quadratic, stiefel
+from dpgo_ros_tpu_torch.parallel.rbcd import (
+    RBCDEngine,
+    state_from_numpy,
+    state_to_numpy,
+)
+
+# tolerances: kernel vs plain fp32 on the card (sum orders differ, the
+# TR decisions must not); CPU fp64 vs card fp32 cost histories as in
+# tests/test_fused_rtr.py's engine-equivalence pin
+TOL_F0, TOL_F, TOL_X, TOL_HIST = 1e-5, 1e-4, 1e-4, 2e-3
+DEMO_PARAMS = RTRParams(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
+DEV = torch.device("cuda")
+
+
+def require_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def phase_build() -> None:
+    t = time.time()
+    path, log = fused_rtr.build()
+    print(f"build: {path.name} in {time.time() - t:.1f} s", flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas: " + line.strip())
+
+
+def se2_world(n: int, num_robots: int, seed: int):
+    """Planar ring with odometry and loop closures at index offset 50 (the
+    synthetic generators are 3D; the kernel also takes d = 2)."""
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(n) / 100.0
+    pos = np.stack([np.cos(ang), np.sin(ang)], 1) * (5.0 + 0.01 * np.arange(n))[:, None]
+    c, s = np.cos(ang + np.pi / 2), np.sin(ang + np.pi / 2)
+    Rg = np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], 1)
+    src = np.concatenate([np.arange(n - 1), np.arange(n - 50)])
+    dst = np.concatenate([np.arange(1, n), np.arange(50, n)])
+    E = src.size
+    th = 0.01 * rng.standard_normal(E)
+    Rn = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                   np.stack([np.sin(th), np.cos(th)], -1)], 1)
+    R = np.einsum("eji,ejk->eik", Rg[src], Rg[dst]) @ Rn
+    t = np.einsum("eji,ej->ei", Rg[src], pos[dst] - pos[src])
+    t = t + 0.05 * rng.standard_normal((E, 2))
+    robot = np.minimum(np.arange(n) * num_robots // n, num_robots - 1)
+    start = np.searchsorted(robot, np.arange(num_robots))
+    local = np.arange(n) - start[robot]
+    sr, dr = robot[src], robot[dst]
+    et = np.where(sr != dr, EdgeType.SHARED_LOOP_CLOSURE,
+                  np.where(dst == src + 1, EdgeType.ODOMETRY,
+                           EdgeType.PRIVATE_LOOP_CLOSURE)).astype(np.int32)
+    m = MeasurementBatch(
+        src_robot=sr.astype(np.int32), src_frame=local[src].astype(np.int32),
+        dst_robot=dr.astype(np.int32), dst_frame=local[dst].astype(np.int32),
+        R=R, t=t, kappa=np.full(E, 1e4), tau=np.full(E, 400.0),
+        weight=np.ones(E), fixed_weight=et == EdgeType.ODOMETRY, edge_type=et,
+    )
+    data = PoseGraphData(measurements=m, num_poses=np.bincount(robot).astype(np.int64), d=2)
+    return data, np.concatenate([Rg, pos[:, :, None]], -1)
+
+
+def noisy_state(prob: LiftedProblem, gt: np.ndarray, seed: int) -> torch.Tensor:
+    """Lifted ground truth moved by a random ambient step, retracted."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((prob.r, prob.d))
+    Yl, _ = np.linalg.qr(A)
+    X = np.einsum("rd,ndk->nrk", Yl, gt)
+    V = rng.standard_normal(X.shape)
+    V[..., :-1] *= 0.05
+    V[..., -1] *= 0.5
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=prob.device)
+    return stiefel.retract_polar_ns(f(X), f(V))
+
+
+def solve_cases():
+    """(name, prob, X, mask, Pinv, offsets) for every comparison case."""
+    worlds = [
+        ("sphere2500", *generate_world("sphere", n=2500, num_robots=5, seed=1)[:2]),
+        ("grid3d-10", *generate_world("grid3d", grid_shape=(10, 10, 10),
+                                      num_robots=5, seed=2)[:2]),
+        ("se2-ring", *se2_world(1200, 4, seed=3)),
+    ]
+    cfg = AgentConfig(update_rule=UpdateRule.PARALLEL, dtype="float32")
+    for wi, (name, data, gt) in enumerate(worlds):
+        prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
+        eng = RBCDEngine(prob, cfg)
+        Pinv = eng._solver_cache(prob.edges)
+        masks = [(f"robot{k}", eng._masks[k]) for k in range(prob.num_robots)]
+        masks += [(f"color{c}", eng._color_masks[c]) for c in range(eng.num_colors)]
+        for mi, (mname, mask) in enumerate(masks):
+            X = noisy_state(prob, gt, seed=100 * wi + mi)
+            yield f"{name}/{mname}", prob, X, mask, Pinv, eng._offsets
+
+
+def phase_compare() -> float:
+    """Kernel vs plain on every case; returns the max abs X error."""
+    worst = 0.0
+    for name, prob, X, mask, Pinv, offs in solve_cases():
+        Xk, sk = fused_rtr.rtr_solve_fused(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs)
+        Xp, sp = fused_rtr.rtr_solve_fused_ref(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs)
+        Xk = torch.where(mask > 0, Xk, X)
+        Xp = torch.where(mask > 0, Xp, X)
+        sk, sp = sk.double().cpu().numpy(), sp.double().cpu().numpy()
+        err = float((Xk - Xp).abs().max())
+        xrel = err / float(Xp.abs().max())
+        f0rel = abs(sk[0] - sp[0]) / abs(sp[0])
+        frel = abs(sk[1] - sp[1]) / abs(sp[1])
+        worst = max(worst, err)
+        print(
+            f"compare {name}: TR {int(sk[4])}/{int(sp[4])} tCG {int(sk[5])}/"
+            f"{int(sp[5])} f0 {sk[0]:.7g} rel {f0rel:.2e} f {sk[1]:.7g} rel "
+            f"{frel:.2e} X rel {xrel:.2e} (max abs {err:.2e})", flush=True,
+        )
+        assert np.isfinite(sk).all(), f"{name}: non-finite stats {sk}"
+        assert int(sk[4]) == int(sp[4]), f"{name}: TR iterations differ"
+        assert f0rel <= TOL_F0 and frel <= TOL_F and xrel <= TOL_X, name
+        n_r = prob.num_robots
+        upd_k = sk[6 + n_r:6 + 2 * n_r]
+        assert np.array_equal(upd_k, sp[6 + n_r:6 + 2 * n_r]), f"{name}: updated flags"
+        assert np.allclose(sk[6:6 + n_r], sp[6:6 + n_r], rtol=1e-3, atol=1e-6), name
+    return worst
+
+
+def phase_main_path(tmp: str):
+    """The CLI main path on the card, counting kernel launches."""
+    prefix = os.path.join(tmp, "demo")
+    fused_rtr.LAUNCHES = 0
+    summary, extras = cli.run([
+        "--demo", "dpgo_demo", "--synthetic", "sphere", "--synthetic_n", "2500",
+        "--device", "cuda", "--output", prefix,
+    ])
+    launches = fused_rtr.LAUNCHES
+    print("main path: " + json.dumps(summary), flush=True)
+    print("main path timing_sec " + json.dumps(extras["timing_sec"]))
+    print(f"main path: launches {launches} block updates "
+          f"{extras['block_updates']} initial cost {extras['initial_cost']:.7g}")
+    assert launches == extras["block_updates"] > 0
+    assert summary["final_cost"] < extras["initial_cost"]
+    assert math.isfinite(summary["ate_vs_ground_truth"])
+    for suffix in ["_global.g2o", ".html"] + [f"_robot{k}.tum" for k in range(5)]:
+        assert os.path.getsize(prefix + suffix) > 0, suffix
+    return launches
+
+
+def phase_fixed_iterations() -> None:
+    """20 RoundRobin iterations (tol 0) from one initial state: card fp32
+    kernel vs CPU fp64 plain path."""
+    data, _, _ = generate_world("sphere", n=2500, num_robots=5, seed=42)
+    base = dict(num_robots=5, update_rule=UpdateRule.ROUND_ROBIN,
+                local_initialization_method=InitMethod.CHORDAL,
+                relative_change_tolerance=0.0, max_iteration_number=20,
+                RTR_gradnorm_tol=0.5)
+    p64 = LiftedProblem.from_data(data, r=5, dtype=torch.float64, device="cpu")
+    e64 = RBCDEngine(p64, AgentConfig(dtype="float64", **base))
+    s64 = e64.initialize()
+    p32 = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
+    e32 = RBCDEngine(p32, AgentConfig(dtype="float32", **base))
+    s32 = state_from_numpy(state_to_numpy(s64), dtype=torch.float32, device=DEV)
+    _, i64 = e64.run(s64)
+    _, i32 = e32.run(s32)
+    h64 = np.array(i64["history"]["cost"])
+    h32 = np.array(i32["history"]["cost"])
+    rel = float(np.max(np.abs(h32 - h64) / np.abs(h64)))
+    print(f"fixed 20 iterations: cost {h64[0]:.7g} -> {h64[-1]:.7g} (CPU fp64), "
+          f"{h32[-1]:.7g} (card fp32), max rel history deviation {rel:.2e}")
+    assert len(h64) == len(h32) == 20 and rel <= TOL_HIST
+
+
+def _time(fn, reps: int) -> float:
+    """ms per call: CUDA events around `reps` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def phase_timing():
+    """Per-solve time of kernel and plain version on the sphere2500 robot
+    masks, same inputs; returns (kernel ms, plain ms)."""
+    cases = [c for c in solve_cases() if c[0].startswith("sphere2500/robot")]
+    launches_before = fused_rtr.LAUNCHES
+
+    def run_all(fn):
+        def go():
+            for _, prob, X, mask, Pinv, offs in cases:
+                fn(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs)
+        return go
+
+    k_ms = _time(run_all(fused_rtr.rtr_solve_fused), 4) / len(cases)
+    p_ms = _time(run_all(fused_rtr.rtr_solve_fused_ref), 1) / len(cases)
+    k2_ms = _time(run_all(fused_rtr.rtr_solve_fused), 4) / len(cases)
+    tcg = [int(fused_rtr.rtr_solve_fused(X, m, P, pr.edges, DEMO_PARAMS, o)[1][5])
+           for _, pr, X, m, P, o in cases]
+    fused_rtr.LAUNCHES = launches_before  # timing launches are not main path
+    print(f"timing per solve (sphere2500 robot blocks, tCG/solve {tcg}): "
+          f"kernel {k_ms:.3f} ms, {k2_ms:.3f} ms (second pass), plain {p_ms:.3f} ms")
+    return min(k_ms, k2_ms), p_ms
+
+
+def main() -> int:
+    require_cuda()
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    phase_build()
+    max_err = phase_compare()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_main_path(tmp)
+    phase_fixed_iterations()
+    k_ms, p_ms = phase_timing()
+    print(card)
+    print(json.dumps({"kernels": [{
+        "name": "rtr_block_solve",
+        "route": "cuda",
+        "source": "dpgo_ros_tpu_torch/csrc/rtr_block.cu",
+        "replaces": "dpgo_ros_tpu/ops/fused_rtr.py:1092",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,114 @@
+"""The port's CLI end to end on CPU, and its import boundary.
+
+The solve itself is pinned to the JAX engine by test_torch_engine.py; here
+the CLI's run is checked against the port's engine driven directly, and
+the process-level contracts are checked in subprocesses: importing the
+port loads no jax, and ``--device cuda`` without a card exits nonzero.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from dpgo_ros_tpu.io.synthetic import generate_world
+from dpgo_ros_tpu.utils.config import AgentConfig, InitMethod, UpdateRule
+from dpgo_ros_tpu_torch import cli
+from dpgo_ros_tpu_torch.models.problem import LiftedProblem
+from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
+
+REPO = Path(__file__).resolve().parent.parent
+SMALL = ["--synthetic", "grid3d", "--synthetic_n", "64", "--num_robots", "2",
+         "--device", "cpu", "--dtype", "float64"]
+
+
+def _subprocess(code: str, *args):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run(
+        [sys.executable, "-c", code, *args], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+@pytest.mark.parametrize("rule", ["RoundRobin", "Parallel"])
+def test_cli_end_to_end_matches_engine(tmp_path, rule, capsys):
+    prefix = str(tmp_path / "sol")
+    argv = SMALL + ["--demo", "dpgo_demo", "--update_rule", rule,
+                    "--output", prefix]
+    assert cli.main(argv) == 0
+    out, err = capsys.readouterr()
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert set(summary) >= {"iterations", "final_cost", "wall_time_sec",
+                            "ate_vs_ground_truth"}
+    timing = json.loads(err.split("timing_sec ", 1)[1].splitlines()[0])
+    assert set(timing) == {"init", "solve", "rounding", "export"}
+    for suffix in ["_global.g2o", "_robot0.tum", "_robot1.tum", ".html"]:
+        assert Path(prefix + suffix).stat().st_size > 0
+    assert math.isfinite(summary["ate_vs_ground_truth"])
+
+    # the same run through the engine API (dpgo_demo preset values, with
+    # --num_robots 2 and the selected rule)
+    data, _, _ = generate_world("grid3d", grid_shape=(4, 4, 4), num_robots=2, seed=42)
+    prob = LiftedProblem.from_data(data, r=5, dtype=torch.float64)
+    eng = RBCDEngine(prob, AgentConfig(
+        num_robots=2, update_rule=UpdateRule(rule),
+        local_initialization_method=InitMethod.CHORDAL,
+        relative_change_tolerance=0.2, RTR_gradnorm_tol=0.5, dtype="float64",
+    ))
+    st0 = eng.initialize()
+    st, info = eng.run(st0)
+    assert summary["iterations"] == info["iterations"]
+    assert summary["final_cost"] == pytest.approx(info["final_cost"], rel=1e-12)
+    assert info["final_cost"] < float(st0.cost)
+
+
+def test_demo_preset_yields_to_explicit_flags():
+    p = cli.build_parser()
+    a = p.parse_args(["--demo", "dpgo_demo", "--num_robots", "3",
+                      "--relative_change_tolerance", "0.05"])
+    cli.apply_demo(a, p)
+    assert (a.num_robots, a.relative_change_tolerance) == (3, 0.05)
+    assert (a.update_rule, a.local_initialization_method) == ("RoundRobin", "Chordal")
+    assert (a.RTR_gradnorm_tol, a.dataset) == (0.5, "sphere2500")
+
+
+def test_import_and_run_load_no_jax():
+    code = (
+        "import sys\n"
+        "import dpgo_ros_tpu_torch, dpgo_ros_tpu_torch.cli\n"
+        "import dpgo_ros_tpu_torch.parallel.rbcd, dpgo_ros_tpu_torch.ops.fused_rtr\n"
+        "assert 'jax' not in sys.modules, 'import loaded jax'\n"
+        "dpgo_ros_tpu_torch.cli.run(sys.argv[1:])\n"
+        "assert 'jax' not in sys.modules, 'run loaded jax'\n"
+        "print('JAX_FREE')\n"
+    )
+    proc = _subprocess(code, *SMALL, "--max_iteration_number", "2")
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX_FREE" in proc.stdout
+
+
+def test_cuda_without_card_exits_nonzero():
+    proc = _subprocess(
+        "import sys, torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "from dpgo_ros_tpu_torch import cli\n"
+        "sys.exit(cli.main(sys.argv[1:]))\n",
+        "--demo", "dpgo_demo", "--synthetic", "sphere", "--synthetic_n", "100",
+    )
+    if "AssertionError" in proc.stderr:
+        pytest.skip("this machine has a CUDA device")
+    assert proc.returncode == 2
+    assert "no CUDA device" in proc.stderr
+    assert proc.stdout == ""
+
+
+def test_usage_error_without_input():
+    with pytest.raises(SystemExit) as exc:
+        cli.run(["--device", "cpu"])
+    assert exc.value.code == 2

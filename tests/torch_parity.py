@@ -1,0 +1,53 @@
+"""Shared inputs for the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Every input is made with numpy from a seed and handed to both packages, so
+the JAX reference and the port compute on identical data.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from dpgo_ros_tpu.io.synthetic import generate_world
+
+WORLDS = {
+    "sphere256": dict(kind="sphere", n=256, num_robots=3, seed=0),
+    "grid3d4": dict(kind="grid3d", grid_shape=(4, 4, 4), num_robots=2, seed=1),
+}
+
+
+def world(name: str):
+    """(data, ground truth (n, 3, 4)) of a named small synthetic world."""
+    data, gt, _ = generate_world(**WORLDS[name])
+    return data, gt
+
+
+def rel_err(a, b) -> float:
+    """max |a − b| / max |b| over finite entries; non-finite entries (a
+    robot's rel change is inf until it first updates) must match exactly,
+    else the error is inf."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    fin = np.isfinite(b)
+    if a.shape != b.shape or not np.array_equal(a[~fin], b[~fin], equal_nan=True):
+        return float("inf")
+    a, b = a[fin], b[fin]
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def random_state(n: int, r: int, d: int, seed: int, p_scale: float = 1.0):
+    """(n, r, d+1) lifted state: sign-fixed QR Stiefel blocks + Gaussian p."""
+    rng = np.random.default_rng(seed)
+    Q, R = np.linalg.qr(rng.standard_normal((n, r, d)))
+    s = np.sign(np.diagonal(R, axis1=-2, axis2=-1))
+    Y = Q * np.where(s == 0, 1.0, s)[:, None, :]
+    p = p_scale * rng.standard_normal((n, r, 1))
+    return np.concatenate([Y, p], axis=-1)
+
+
+def noisy_lifted_gt(gt: np.ndarray, r: int, seed: int, noise: float = 0.05):
+    """Ground truth lifted through a random YLift plus ambient noise — a
+    state near the optimum, like the solver's iterates."""
+    rng = np.random.default_rng(seed)
+    Yl, _ = np.linalg.qr(rng.standard_normal((r, gt.shape[1])))
+    X = np.einsum("rd,ndk->nrk", Yl, gt)
+    return X + noise * rng.standard_normal(X.shape)
