@@ -7,22 +7,35 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero; nothing is caught):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the RTR block-solve kernel from csrc/rtr_block.cu;
-  3. hold the kernel against its plain PyTorch version on the card, on the
+  2. build both kernels, K1 (csrc/rtr_block.cu) and K2 (csrc/rtr_run.cu),
+     one nvcc per source started together; print ptxas's report;
+  3. hold K1 against its plain PyTorch version on the card, on the
      2,500-pose 5-robot synthetic sphere (every robot mask and every
      Parallel colour union), on a 1,000-pose grid3d world (irregular loop
      closures) and on an SE(2) ring, from noisy states;
-  4. drive the CLI main path (``--demo dpgo_demo --synthetic sphere
-     --synthetic_n 2500 --device cuda``) to its rel-change tolerance with
-     the launch counter zeroed just before, and check cost decrease,
-     launches == block updates, export files and a finite ATE; then run
-     20 fixed iterations on the card (kernel, fp32) and on the CPU (plain
-     path, fp64) from one initial state and compare the cost histories;
-  5. time the kernel and the plain version per solve at these shapes.
+  4. hold K2 against its plain version on the sphere (10 RoundRobin steps,
+     6 Parallel steps, a GNC exit on the cadence, 10 RGD steps) and on the
+     SE(2) ring;
+  5. drive the CLI main path (``--demo dpgo_demo --synthetic sphere
+     --synthetic_n 2500 --device cuda``) in engine mode to its rel-change
+     tolerance with the launch counters zeroed just before, and check cost
+     decrease, K1 launches == block updates, export files and a finite ATE;
+     then run 20 fixed iterations on the card (K1, fp32) and on the CPU
+     (plain path, fp64) from one initial state and compare the histories;
+  6. drive the same main path with ``--mode fused``: one K2 launch, no K1
+     launch, the engine run's iterations and cost;
+  7. drive the GNC demo at full width (``--demo dpgo_gnc_demo --synthetic
+     sphere --synthetic_n 2500 --synthetic_outlier_ratio 0.1``: 8 robots,
+     245 planted outliers) in both modes: 3 weight rounds, K2 launches ==
+     rounds + 1 (fused), K1 launches == block updates (engine), the modes'
+     accept/reject sets agree, outlier recall no worse than the JAX CLI's;
+  8. time K1 per solve and K2 per step against their plain versions at
+     these shapes, and the dpgo_demo solve phase of both modes.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
-in the main-path run, max abs error, ms per solve of kernel and plain).
+in the main-path run, max abs error, ms per solve or step of kernel and
+plain version), and the line before that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -55,6 +68,9 @@ from dpgo_ros_tpu_torch.parallel.rbcd import (
 # TR decisions must not); CPU fp64 vs card fp32 cost histories as in
 # tests/test_fused_rtr.py's engine-equivalence pin
 TOL_F0, TOL_F, TOL_X, TOL_HIST = 1e-5, 1e-4, 1e-4, 2e-3
+# K2 vs plain over many chained steps (K1's tolerances of
+# tests/test_torch_fused_rtr.py, as the CPU parity tests use for K2)
+TOL_RUN_X, TOL_RUN_REL, TOL_RUN_COST = 1e-3, 1e-3, 1e-4
 DEMO_PARAMS = RTRParams(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
 DEV = torch.device("cuda")
 
@@ -73,12 +89,16 @@ def card_line() -> str:
 
 
 def phase_build() -> None:
+    """Both kernels' libraries, one nvcc per source started together; the
+    ptxas register, stack and spill report of each."""
     t = time.time()
-    path, log = fused_rtr.build()
-    print(f"build: {path.name} in {time.time() - t:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip())
+    built = fused_rtr.build_all()
+    print(f"build: {', '.join(p.name for p, _ in built)} in "
+          f"{time.time() - t:.1f} s", flush=True)
+    for path, log in built:
+        for line in log.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "stack")):
+                print(f"  ptxas {path.stem}: " + line.strip())
 
 
 def se2_world(n: int, num_robots: int, seed: int):
@@ -177,25 +197,98 @@ def phase_compare() -> float:
     return worst
 
 
+def run_cases():
+    """(name, prob, X, bank, sched, Pinv, adj, offsets, run) for every K2
+    comparison case: the 2,500-pose 5-robot sphere from a noisy state
+    (RoundRobin, Parallel, a GNC exit on the cadence, RGD steps) and the
+    SE(2) ring."""
+    worlds = [("sphere2500", *generate_world("sphere", n=2500, num_robots=5, seed=1)[:2]),
+              ("se2-ring", *se2_world(1200, 4, seed=3))]
+    base = dict(last_wu=0, gnc_pending=False, tol=0.0, gnc=False, inner=1,
+                inner_tol=None, record=True, rgd_stepsize=0.0)
+    for wi, (name, data, gt) in enumerate(worlds):
+        prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
+        X = noisy_state(prob, gt, seed=200 + wi)
+        cases = [("roundrobin", UpdateRule.ROUND_ROBIN, 10, {}),
+                 ("parallel", UpdateRule.PARALLEL, 6, {}),
+                 ("gnc-exit", UpdateRule.ROUND_ROBIN, 10,
+                  dict(gnc=True, gnc_pending=True, inner=3)),
+                 ("rgd", UpdateRule.ROUND_ROBIN, 10, dict(rgd_stepsize=0.2))]
+        if name == "se2-ring":
+            cases = [("roundrobin", UpdateRule.ROUND_ROBIN, 4, {})]
+        for cname, rule, steps, kw in cases:
+            eng = RBCDEngine(prob, AgentConfig(update_rule=rule, dtype="float32"))
+            bank, sched = eng.mask_bank_and_schedule(steps)
+            run = dict(base, it0=0, it_cap=steps, **kw)
+            yield (f"{name}/{cname}", prob, X, bank, sched,
+                   eng._solver_cache(prob.edges), eng._adjf, eng._offsets, run)
+
+
+def _run_pair(prob, X, bank, sched, Pinv, adj, offs, run, fn):
+    rel0 = torch.full((prob.num_robots,), float("inf"), device=DEV)
+    cost0 = quadratic.cost(X, prob.edges).reshape(1)
+    kw = dict(adj=adj, rel0=rel0, cost0=cost0, offsets=offs, **run)
+    return fn(X, bank, sched, Pinv, prob.edges, DEMO_PARAMS, **kw)
+
+
+def phase_compare_run() -> float:
+    """K2 vs its plain version on every run case; returns the max abs X
+    error. Gates: the same exit iteration and steps, X within TOL_RUN_X of
+    max |X|, rel change and history rows within rel TOL_RUN_REL, cost
+    within rel TOL_RUN_COST."""
+    worst = 0.0
+    for name, prob, X, bank, sched, Pinv, adj, offs, run in run_cases():
+        args = (prob, X, bank, sched, Pinv, adj, offs, run)
+        Xk, relk, sk, hk = _run_pair(*args, fused_rtr.rtr_run_fused)
+        Xp, relp, sp, hp = _run_pair(*args, fused_rtr.rtr_run_fused_ref)
+        sk, sp = sk.double().cpu().numpy(), sp.double().cpu().numpy()
+        err = float((Xk - Xp).abs().max())
+        xrel = err / float(Xp.abs().max())
+        rrel = _rel(relk, relp)
+        hrel = _rel(hk, hp)
+        crel = abs(sk[0] - sp[0]) / abs(sp[0])
+        worst = max(worst, err)
+        print(f"run {name}: it {int(sk[1])}/{int(sp[1])} steps {int(sk[2])}/"
+              f"{int(sp[2])} tCG {int(sk[3])}/{int(sp[3])} cost {sk[0]:.7g} rel "
+              f"{crel:.2e} X rel {xrel:.2e} (max abs {err:.2e}) rel-change rel "
+              f"{rrel:.2e} history rel {hrel:.2e}", flush=True)
+        assert np.isfinite(sk).all() and torch.isfinite(Xk).all(), name
+        assert int(sk[1]) == int(sp[1]) and int(sk[2]) == int(sp[2]), name
+        assert xrel <= TOL_RUN_X and rrel <= TOL_RUN_REL and hrel <= TOL_RUN_REL, name
+        assert crel <= TOL_RUN_COST, name
+        if run["gnc"]:
+            assert int(sk[1]) == run["inner"], f"{name}: GNC exit at {int(sk[1])}"
+    return worst
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| / max |b| over finite entries of b; non-finite entries
+    (inf rel change, NaN history rows) must match exactly, else inf."""
+    a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+    fin = np.isfinite(b)
+    if not np.array_equal(a[~fin], b[~fin], equal_nan=True):
+        return float("inf")
+    if not fin.any():
+        return 0.0
+    return float(np.max(np.abs(a[fin] - b[fin])) / max(np.max(np.abs(b[fin])), 1e-30))
+
+
 def phase_main_path(tmp: str):
     """The CLI main path on the card, counting kernel launches."""
     prefix = os.path.join(tmp, "demo")
-    fused_rtr.LAUNCHES = 0
-    summary, extras = cli.run([
-        "--demo", "dpgo_demo", "--synthetic", "sphere", "--synthetic_n", "2500",
-        "--device", "cuda", "--output", prefix,
-    ])
-    launches = fused_rtr.LAUNCHES
+    summary, extras, launches, run_launches = _counted_run(
+        DPGO_DEMO + ["--output", prefix]
+    )
     print("main path: " + json.dumps(summary), flush=True)
     print("main path timing_sec " + json.dumps(extras["timing_sec"]))
     print(f"main path: launches {launches} block updates "
           f"{extras['block_updates']} initial cost {extras['initial_cost']:.7g}")
-    assert launches == extras["block_updates"] > 0
+    assert launches == extras["block_updates"] > 0 and run_launches == 0
     assert summary["final_cost"] < extras["initial_cost"]
     assert math.isfinite(summary["ate_vs_ground_truth"])
     for suffix in ["_global.g2o", ".html"] + [f"_robot{k}.tum" for k in range(5)]:
         assert os.path.getsize(prefix + suffix) > 0, suffix
-    return launches
+    return launches, summary
 
 
 def phase_fixed_iterations() -> None:
@@ -258,18 +351,125 @@ def phase_timing():
     return min(k_ms, k2_ms), p_ms
 
 
+DPGO_DEMO = ["--demo", "dpgo_demo", "--synthetic", "sphere", "--synthetic_n", "2500",
+             "--device", "cuda"]
+GNC_DEMO = ["--demo", "dpgo_gnc_demo", "--synthetic", "sphere", "--synthetic_n", "2500",
+            "--synthetic_outlier_ratio", "0.1", "--device", "cuda"]
+# outlier recall (rejected_true / planted) of the JAX CLI on the same world,
+# 245 of 245 (run on a CPU host; PERF.md has the whole summary):
+#   python -m dpgo_ros_tpu.cli --demo dpgo_gnc_demo --synthetic sphere \
+#       --synthetic_n 2500 --synthetic_outlier_ratio 0.1 --platform cpu
+JAX_GNC_RECALL = 1.0
+GNC_PLANTED = 245  # 10 % of the world's 2,450 loop closures
+TOL_MODES_COST, MIN_MODE_AGREEMENT = 1e-4, 0.99
+
+
+def _counted_run(argv):
+    """cli.run with both launch counters zeroed just before; returns
+    (summary, extras, K1 launches, K2 launches)."""
+    fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = 0
+    summary, extras = cli.run(argv)
+    return summary, extras, fused_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES
+
+
+def phase_fused_main_path(engine_summary):
+    """--mode fused on the dpgo_demo main path: one K2 launch, no K1."""
+    summary, extras, k1, k2 = _counted_run(DPGO_DEMO + ["--mode", "fused"])
+    print("fused main path: " + json.dumps(summary), flush=True)
+    print("fused main path timing_sec " + json.dumps(extras["timing_sec"]))
+    print(f"fused main path: K2 launches {k2}, K1 launches {k1}")
+    assert k2 == 1 and k1 == 0, (k2, k1)
+    assert abs(summary["iterations"] - engine_summary["iterations"]) <= 1
+    assert abs(summary["final_cost"] - engine_summary["final_cost"]) <= (
+        TOL_MODES_COST * abs(engine_summary["final_cost"]))
+    assert math.isfinite(summary["ate_vs_ground_truth"])
+    return k2
+
+
+def phase_gnc():
+    """The GNC demo at full width in both modes."""
+    runs = {}
+    for mode in ("engine", "fused"):
+        t = time.time()
+        summary, extras, k1, k2 = _counted_run(GNC_DEMO + ["--mode", mode])
+        runs[mode] = (summary, extras)
+        og = summary["outlier_ground_truth"]
+        print(f"gnc {mode}: " + json.dumps(summary), flush=True)
+        print(f"gnc {mode} timing_sec " + json.dumps(extras["timing_sec"]))
+        print(f"gnc {mode}: weight rounds {extras['weight_rounds']}, K1 launches "
+              f"{k1}, K2 launches {k2}, block updates {extras['block_updates']}, "
+              f"{time.time() - t:.1f} s", flush=True)
+        assert extras["weight_rounds"] == 3
+        if mode == "fused":
+            assert k2 == extras["weight_rounds"] + 1 and k1 == 0, (k2, k1)
+        else:
+            assert k1 == extras["block_updates"] and k2 == 0, (k1, k2)
+        assert og["planted"] == GNC_PLANTED
+        assert og["rejected_true"] / og["planted"] >= JAX_GNC_RECALL - 0.02, og
+        assert math.isfinite(summary["ate_vs_ground_truth"])
+    n = int(GNC_DEMO[GNC_DEMO.index("--synthetic_n") + 1])
+    loops = np.asarray(generate_world("sphere", n=n, num_robots=8, seed=42,
+                                      outlier_ratio=0.1)[0].measurements.edge_type) != 0
+    acc = {m: runs[m][1]["weights"][: loops.size][loops] > 0.5 for m in runs}
+    agree = float(np.mean(acc["engine"] == acc["fused"]))
+    print(f"gnc: engine and fused agree on {100 * agree:.2f} % of "
+          f"{int(loops.sum())} loop closures")
+    assert agree >= MIN_MODE_AGREEMENT
+
+
+def phase_timing_run():
+    """K2 ms per step and its plain version's, on the 10-step RoundRobin
+    sphere case of phase 4 (same inputs); returns (kernel ms, plain ms)."""
+    case = next(c for c in run_cases() if c[0] == "sphere2500/roundrobin")
+    _, prob, X, bank, sched, Pinv, adj, offs, run = case
+    steps = run["it_cap"]
+    launches_before = fused_rtr.RUN_LAUNCHES
+    go = lambda fn: (lambda: _run_pair(prob, X, bank, sched, Pinv, adj, offs, run, fn))
+    k_ms = _time(go(fused_rtr.rtr_run_fused), 3) / steps
+    p_ms = _time(go(fused_rtr.rtr_run_fused_ref), 1) / steps
+    k2_ms = _time(go(fused_rtr.rtr_run_fused), 3) / steps
+    fused_rtr.RUN_LAUNCHES = launches_before  # timing launches are not main path
+    print(f"timing per step (sphere2500, 10 RoundRobin steps): K2 {k_ms:.3f} ms, "
+          f"{k2_ms:.3f} ms (second pass), plain {p_ms:.3f} ms")
+    return min(k_ms, k2_ms), p_ms
+
+
+def phase_timing_modes():
+    """Solve seconds of the dpgo_demo path, engine then fused then engine
+    then fused, all warm."""
+    out = {"engine": [], "fused": []}
+    for mode in ("engine", "fused", "engine", "fused"):
+        _, extras, _, _ = _counted_run(DPGO_DEMO + ["--mode", mode])
+        out[mode].append(extras["timing_sec"]["solve"])
+    print("dpgo_demo solve seconds (warm, engine / fused): "
+          + json.dumps(out))
+    return out
+
+
+def _phase(name, fn, *args):
+    t = time.time()
+    out = fn(*args)
+    print(f"phase {name}: {time.time() - t:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     require_cuda()
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    phase_build()
-    max_err = phase_compare()
+    _phase("build", phase_build)
+    max_err = _phase("K1 vs plain", phase_compare)
+    run_err = _phase("K2 vs plain", phase_compare_run)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(tmp)
-    phase_fixed_iterations()
-    k_ms, p_ms = phase_timing()
+        launches, engine_summary = _phase("engine main path", phase_main_path, tmp)
+    _phase("fixed iterations", phase_fixed_iterations)
+    run_launches = _phase("fused main path", phase_fused_main_path, engine_summary)
+    _phase("gnc", phase_gnc)
+    k_ms, p_ms = _phase("K1 timing", phase_timing)
+    rk_ms, rp_ms = _phase("K2 timing", phase_timing_run)
+    _phase("mode timing", phase_timing_modes)
     print(card)
     print(json.dumps({"kernels": [{
         "name": "rtr_block_solve",
@@ -280,6 +480,15 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "rtr_run_fused",
+        "route": "cuda",
+        "source": "dpgo_ros_tpu_torch/csrc/rtr_run.cu",
+        "replaces": "dpgo_ros_tpu/ops/fused_rtr.py:1458",
+        "launches": run_launches,
+        "max_abs_err": run_err,
+        "ms": rk_ms,
+        "plain_ms": rp_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,22 +1,32 @@
-"""One RTR block solve as one hand-written CUDA kernel launch (K1).
+"""The RTR block solve (K1) and the multi-step runner (K2) as hand-written
+CUDA kernels.
 
-Port of ``dpgo_ros_tpu/ops/fused_rtr.py::rtr_solve_fused`` (the Pallas
-kernel built by ``_make_rtr_kernel``). The kernel source is
-``csrc/rtr_block.cu``; its header says what bounds it and how it is laid
-out. It is compiled with nvcc at first use, from the checkout's sources,
-into ``build/dpgo_ros_tpu_torch/`` (keyed by a hash of source and flags),
-and bound through a plain C interface with ctypes.
+K1 ports ``dpgo_ros_tpu/ops/fused_rtr.py::rtr_solve_fused`` (the Pallas
+kernel built by ``_make_rtr_kernel``): one masked RTR block solve per
+launch. K2 ports ``rtr_run_fused`` (``_make_rtr_multistep_kernel``): many
+solver steps per launch, with the update schedule, the per-robot relative
+change, termination and the GNC weight-round exit inside the kernel. Both
+share the device code of ``csrc/rtr_common.cuh``; the sources
+``csrc/rtr_block.cu`` (K1) and ``csrc/rtr_run.cu`` (K2) say what bounds
+them and how they are laid out. Each is compiled with nvcc at first use,
+from the checkout's sources, into ``build/dpgo_ros_tpu_torch/`` (keyed by
+a hash of the source, the shared header and the flags), and bound through
+a plain C interface with ctypes.
 
-:func:`rtr_solve_fused` launches the kernel for CUDA tensors and raises if
-it cannot be built or launched; for CPU tensors it runs the plain version
-:func:`rtr_solve_fused_ref`, built on the ported ``rtr_solve``. No path
+:func:`rtr_solve_fused` and :func:`rtr_run_fused` launch their kernel for
+CUDA tensors and raise if it cannot be built or launched; for CPU tensors
+they run the plain versions :func:`rtr_solve_fused_ref` and
+:func:`rtr_run_fused_ref`, built on the ported ``rtr_solve``. No path
 falls back from one to the other.
 
-Stats vector (float32, length 6 + 2·R for R robots):
+K1 stats vector (float32, length 6 + 2·R for R robots):
 ``[f0, f, gn0, gn, TR iterations, tCG iterations,
 moved_0..moved_{R-1}, updated_0..updated_{R-1}]`` where moved is the
 robot's masked block displacement ‖(X_new − X)·mask‖_F and updated is the
 largest mask value over its block.
+
+K2 stats vector (length 4): ``[cost, iteration, steps taken in this
+launch, tCG iterations of this launch]``.
 """
 
 from __future__ import annotations
@@ -27,29 +37,34 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams, rtr_solve
+from dpgo_ros_tpu_torch.ops import quadratic, stiefel
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet
 
 S_F0, S_F, S_GN0, S_GN, S_ITERS, S_TCG = range(6)
 S_MOVED = 6  # [6 : 6+R] per-robot displacement; [6+R : 6+2R] updated flag
+RUN_COST, RUN_ITER, RUN_STEPS, RUN_TCG = range(4)
 MAX_RANK = 8
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "rtr_block.cu"
+HEADER = _PKG / "csrc" / "rtr_common.cuh"
+SOURCE = _PKG / "csrc" / "rtr_block.cu"  # K1
+RUN_SOURCE = _PKG / "csrc" / "rtr_run.cu"  # K2
 BUILD_DIR = _PKG.parent / "build" / "dpgo_ros_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# launches of the CUDA kernel (not of the plain version)
+# launches of the CUDA kernels (not of the plain versions): K1, K2
 LAUNCHES = 0
+RUN_LAUNCHES = 0
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[Path, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -59,47 +74,80 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA block-solve kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> Tuple[Path, str]:
-    """Compile ``csrc/rtr_block.cu`` unless a library for this exact source
-    and flag set exists. Returns (library path, ptxas report)."""
+def _lib_path(source: Path) -> Path:
+    """Library path for ``source``, keyed by a hash of every file it
+    compiles (the source and the shared header) and the flags."""
     key = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    lib = BUILD_DIR / f"rtr_block_{key}.so"
-    log = lib.with_suffix(".log")
-    if not lib.exists():
+    return BUILD_DIR / f"{source.stem}_{key}.so"
+
+
+def build_all(sources: Optional[List[Path]] = None) -> List[Tuple[Path, str]]:
+    """Compile every kernel source whose library is missing, one nvcc per
+    source, all started together. Returns (library path, ptxas report) per
+    source; raises if any nvcc fails."""
+    sources = list(sources) if sources is not None else [SOURCE, RUN_SOURCE]
+    libs = [_lib_path(src) for src in sources]
+    procs = []
+    for src, lib in zip(sources, libs):
+        if lib.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
+        procs.append((src, lib, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )))
+    failed = []
+    for src, lib, tmp, proc in procs:
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
-            )
-        log.write_text(proc.stderr)
+            failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n{err}")
+            continue
+        lib.with_suffix(".log").write_text(err)
         os.replace(tmp, lib)
-    return lib, log.read_text() if log.exists() else ""
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [
+        (lib, lib.with_suffix(".log").read_text()
+         if lib.with_suffix(".log").exists() else "")
+        for lib in libs
+    ]
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _ = build()
+def build(source: Optional[Path] = None) -> Tuple[Path, str]:
+    """Compile one kernel source (default K1's) unless its library exists.
+    Returns (library path, ptxas report)."""
+    return build_all([source if source is not None else SOURCE])[0]
+
+
+def _library(source: Path) -> ctypes.CDLL:
+    lib = _libs.get(source)
+    if lib is None:
+        path, _ = build(source)
         lib = ctypes.CDLL(str(path))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dpgo_rtr_block_solve.argtypes = (
-            [ci] * 6 + [vp] * 14 + [ci, ci] + [cf] * 5 + [vp]
-        )
-        lib.dpgo_rtr_block_solve.restype = ci
-        lib.dpgo_rtr_block_workspace_floats.argtypes = [ci] * 4
-        lib.dpgo_rtr_block_workspace_floats.restype = ctypes.c_longlong
-        _lib = lib
-    return _lib
+        if source == RUN_SOURCE:
+            lib.dpgo_rtr_run.argtypes = (
+                [ci] * 8 + [vp] * 20 + [ci] * 6 + [cf] * 3
+                + [ci, ci] + [cf] * 5 + [vp]
+            )
+            lib.dpgo_rtr_run.restype = ci
+            lib.dpgo_rtr_run_workspace_floats.argtypes = [ci] * 5
+            lib.dpgo_rtr_run_workspace_floats.restype = ctypes.c_longlong
+        else:
+            lib.dpgo_rtr_block_solve.argtypes = (
+                [ci] * 6 + [vp] * 14 + [ci, ci] + [cf] * 5 + [vp]
+            )
+            lib.dpgo_rtr_block_solve.restype = ci
+            lib.dpgo_rtr_block_workspace_floats.argtypes = [ci] * 4
+            lib.dpgo_rtr_block_workspace_floats.restype = ctypes.c_longlong
+        _libs[source] = lib
+    return lib
 
 
 def rtr_solve_fused(
@@ -123,7 +171,7 @@ def rtr_solve_fused(
         raise ValueError(f"rtr_solve_fused: unsupported device {X.device}")
     on_card = X.device.type == "cuda"
     m, kw, tw, offsets = _checked_operands(
-        X, mask, Pinv, edges, params, offsets,
+        "rtr_solve_fused", X, mask, Pinv, edges, params, offsets,
         torch.float32 if on_card else X.dtype,
     )
     if not on_card:
@@ -131,39 +179,43 @@ def rtr_solve_fused(
     return _launch(X, m, Pinv, edges, params, offsets, kw, tw)
 
 
-def _checked_operands(X, mask, Pinv, edges, params, offsets, float_dtype):
+def _checked_operands(who, X, mask, Pinv, edges, params, offsets, float_dtype):
+    """Raise on operands the kernels cannot take (K1 passes its mask, K2
+    None); returns (flat mask or None, κ_eff, τ_eff, offsets)."""
     n, r, dp1 = X.shape
     if dp1 - 1 not in (2, 3):
-        raise ValueError(f"rtr_solve_fused: d={dp1 - 1} (kernel takes 2 or 3)")
+        raise ValueError(f"{who}: d={dp1 - 1} (kernel takes 2 or 3)")
     if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"rtr_solve_fused: r={r} (kernel takes 1..{MAX_RANK})")
+        raise ValueError(f"{who}: r={r} (kernel takes 1..{MAX_RANK})")
     if not params.use_preconditioner:
-        raise ValueError("rtr_solve_fused: the kernel is preconditioned only")
+        raise ValueError(f"{who}: the kernel is preconditioned only")
     if Pinv.shape != (n, dp1, dp1):
-        raise ValueError(f"rtr_solve_fused: Pinv shape {tuple(Pinv.shape)}")
+        raise ValueError(f"{who}: Pinv shape {tuple(Pinv.shape)}")
     if edges.pull.dim() != 2 or edges.pull.shape[0] != n:
-        raise ValueError(f"rtr_solve_fused: pull shape {tuple(edges.pull.shape)}")
+        raise ValueError(f"{who}: pull shape {tuple(edges.pull.shape)}")
     kw, tw = edges.effective_weights()
     if offsets is None:
         offsets = torch.tensor([0, n], dtype=torch.int32, device=X.device)
-    m = mask.reshape(n).contiguous()
+    m = mask.reshape(n).contiguous() if mask is not None else None
     tensors = {
-        "X": X, "mask": m, "Pinv": Pinv, "src": edges.src, "dst": edges.dst,
+        "X": X, "Pinv": Pinv, "src": edges.src, "dst": edges.dst,
         "R": edges.R, "t": edges.t, "kw": kw, "tw": tw, "pull": edges.pull,
         "offsets": offsets,
     }
+    if m is not None:
+        tensors["mask"] = m
     want = {"src": torch.int64, "dst": torch.int64, "pull": torch.int32,
             "offsets": torch.int32}
     for name, ten in tensors.items():
         if ten.device != X.device:
-            raise ValueError(f"rtr_solve_fused: {name} on {ten.device}, X on {X.device}")
+            raise ValueError(f"{who}: {name} on {ten.device}, X on {X.device}")
         if ten.dtype != want.get(name, float_dtype):
             raise TypeError(
-                f"rtr_solve_fused: {name} is {ten.dtype}, expected "
+                f"{who}: {name} is {ten.dtype}, expected "
                 f"{want.get(name, float_dtype)}"
             )
         if not ten.is_contiguous():
-            raise ValueError(f"rtr_solve_fused: {name} is not contiguous")
+            raise ValueError(f"{who}: {name} is not contiguous")
     return m, kw, tw, offsets
 
 
@@ -173,7 +225,7 @@ def _launch(X, m, Pinv, edges, params, offsets, kw, tw):
     d = dp1 - 1
     E = edges.num_edges
     num_robots = offsets.shape[0] - 1
-    lib = _library()
+    lib = _library(SOURCE)
     ws = lib.dpgo_rtr_block_workspace_floats(d, r, n, E)
     X_out = torch.empty_like(X)
     stats = torch.empty(6 + 2 * num_robots, dtype=torch.float32, device=X.device)
@@ -197,6 +249,15 @@ def _launch(X, m, Pinv, edges, params, offsets, kw, tw):
     return X_out, stats
 
 
+def _moved_updated(X, Xf, m, bounds) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-robot masked displacement ‖(Xf − X)·m‖_F and largest mask value
+    over each robot's block (``bounds`` = R+1 block bounds)."""
+    D2 = (((Xf - X) * m[:, None, None]) ** 2).sum(dim=(-2, -1))
+    pairs = list(zip(bounds[:-1], bounds[1:]))
+    return (torch.stack([torch.sqrt(D2[a:b].sum()) for a, b in pairs]),
+            torch.stack([m[a:b].max() for a, b in pairs]))
+
+
 def rtr_solve_fused_ref(
     X: torch.Tensor,
     mask: torch.Tensor,
@@ -205,19 +266,219 @@ def rtr_solve_fused_ref(
     params: RTRParams,
     offsets: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: ``rtr_solve`` plus the same
-    stats vector (in X's dtype). Runs on any device."""
+    """Plain PyTorch version of K1: ``rtr_solve`` plus the same stats
+    vector (in X's dtype). Runs on any device."""
     n = X.shape[0]
     m3 = mask.reshape(n, 1, 1)
     X_new, res = rtr_solve(X, edges, m3, Pinv, params)
     bounds = [0, n] if offsets is None else [int(o) for o in offsets.tolist()]
-    D2 = (((X_new - X) * m3) ** 2).sum(dim=(-2, -1))
-    mv = m3.reshape(n)
-    moved = [torch.sqrt(D2[a:b].sum()) for a, b in zip(bounds[:-1], bounds[1:])]
-    upd = [mv[a:b].max() for a, b in zip(bounds[:-1], bounds[1:])]
+    moved, upd = _moved_updated(X, X_new, m3.reshape(n), bounds)
     head = torch.stack([
         res.f_init, res.f_opt, res.gradnorm_init, res.gradnorm_opt,
         torch.tensor(float(res.iterations), dtype=X.dtype, device=X.device),
         torch.tensor(float(res.tcg_iterations), dtype=X.dtype, device=X.device),
     ])
-    return X_new, torch.cat([head, torch.stack(moved), torch.stack(upd)])
+    return X_new, torch.cat([head, moved, upd])
+
+
+# ---------------------------------------------------------------- K2
+
+
+def rtr_run_fused(
+    X: torch.Tensor,
+    mask_bank: torch.Tensor,
+    sched: torch.Tensor,
+    Pinv: torch.Tensor,
+    edges: EdgeSet,
+    params: RTRParams,
+    *,
+    adj: torch.Tensor,
+    rel0: torch.Tensor,
+    it0: int,
+    last_wu: int,
+    gnc_pending: bool,
+    cost0,
+    it_cap: int,
+    tol: float,
+    gnc: bool,
+    inner: int,
+    inner_tol: Optional[float],
+    record: bool = False,
+    rgd_stepsize: float = 0.0,
+    offsets: Optional[torch.Tensor] = None,
+):
+    """Up to ``it_cap − it0`` solver steps in one launch (K2).
+
+    Step ``it`` solves the block ``mask_bank[sched[it]]`` (one masked RTR
+    solve, or one preconditioned RGD step when ``rgd_stepsize > 0``),
+    restores the unmasked poses exactly, and updates the per-robot
+    relative change: ``rel = updated ? moved : max(rel, (moved·updated) @
+    adj)``. After each step, at ``it2 = it + 1``, the run stops when every
+    robot's rel change is below ``tol`` and no GNC round is pending, at
+    ``it_cap``, or when a GNC round must fire (``gnc_pending`` and
+    ``inner_tol is not None ? max rel < inner_tol or it2 − last_wu ≥ inner
+    : it2 % inner == 0``). An input that has already terminated runs zero
+    steps.
+
+    X (n, r, d+1); mask_bank (m, n); sched (it_cap,) int32 bank rows;
+    Pinv (n, d+1, d+1); adj (R, R) robot adjacency; rel0 (R,); cost0 the
+    cost of X; ``offsets`` (R+1,) int32 robot block bounds.
+
+    Returns (X, rel (R,), stats (4,)[, rel_hist (it_cap, R)]) — stats
+    ``[cost, iteration, steps taken, tCG iterations]``; rel_hist rows are
+    written at the absolute iteration and the others stay NaN.
+    """
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rtr_run_fused: unsupported device {X.device}")
+    on_card = X.device.type == "cuda"
+    fdt = torch.float32 if on_card else X.dtype
+    n = X.shape[0]
+    _, kw, tw, offsets = _checked_operands(
+        "rtr_run_fused", X, None, Pinv, edges, params, offsets, fdt,
+    )
+    R = offsets.shape[0] - 1
+    if mask_bank.dim() != 2 or mask_bank.shape[1] != n:
+        raise ValueError(f"rtr_run_fused: mask_bank shape {tuple(mask_bank.shape)}")
+    if sched.dim() != 1 or sched.shape[0] < it_cap:
+        raise ValueError(
+            f"rtr_run_fused: sched shape {tuple(sched.shape)} for it_cap {it_cap}"
+        )
+    if adj.shape != (R, R) or rel0.shape != (R,):
+        raise ValueError(
+            f"rtr_run_fused: adj {tuple(adj.shape)} / rel0 {tuple(rel0.shape)} "
+            f"for {R} robots"
+        )
+    if gnc and inner < 1:
+        raise ValueError(f"rtr_run_fused: inner={inner} (must be >= 1)")
+    want = {"mask_bank": (mask_bank, fdt), "sched": (sched, torch.int32),
+            "adj": (adj, fdt), "rel0": (rel0, fdt)}
+    for name, (ten, dt) in want.items():
+        if ten.device != X.device:
+            raise ValueError(f"rtr_run_fused: {name} on {ten.device}, X on {X.device}")
+        if ten.dtype != dt:
+            raise TypeError(f"rtr_run_fused: {name} is {ten.dtype}, expected {dt}")
+        if not ten.is_contiguous():
+            raise ValueError(f"rtr_run_fused: {name} is not contiguous")
+    live = sched[it0:it_cap] if it0 < it_cap else sched[:0]
+    if live.numel() and (int(live.min()) < 0 or int(live.max()) >= mask_bank.shape[0]):
+        raise ValueError("rtr_run_fused: a sched entry is outside the mask bank")
+    cost0 = torch.as_tensor(cost0, dtype=fdt, device=X.device).reshape(1)
+    run = dict(it0=int(it0), last_wu=int(last_wu), gnc_pending=bool(gnc_pending),
+               it_cap=int(it_cap), tol=float(tol), gnc=bool(gnc),
+               inner=int(inner), inner_tol=inner_tol, record=bool(record),
+               rgd_stepsize=float(rgd_stepsize))
+    if not on_card:
+        return rtr_run_fused_ref(
+            X, mask_bank, sched, Pinv, edges, params, adj=adj, rel0=rel0,
+            cost0=cost0, offsets=offsets, **run,
+        )
+    return _launch_run(X, mask_bank, sched, Pinv, edges, params, adj, rel0,
+                       cost0, offsets, kw, tw, run)
+
+
+def _launch_run(X, bank, sched, Pinv, edges, params, adj, rel0, cost0,
+                offsets, kw, tw, run):
+    global RUN_LAUNCHES
+    n, r, dp1 = X.shape
+    d = dp1 - 1
+    E = edges.num_edges
+    R = offsets.shape[0] - 1
+    it_cap = run["it_cap"]
+    lib = _library(RUN_SOURCE)
+    ws = lib.dpgo_rtr_run_workspace_floats(d, r, n, E, R)
+    X_out = torch.empty_like(X)
+    rel = torch.empty_like(rel0)
+    stats = torch.empty(4, dtype=torch.float32, device=X.device)
+    rel_hist = (
+        torch.full((it_cap, R), float("nan"), dtype=torch.float32, device=X.device)
+        if run["record"] else None
+    )
+    work = torch.empty(ws, dtype=torch.float32, device=X.device)
+    p = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
+    inner_tol = run["inner_tol"]
+    with torch.cuda.device(X.device):  # launch on X's card, in its stream
+        rc = lib.dpgo_rtr_run(
+            d, r, n, E, int(edges.pull.shape[1]), R, int(bank.shape[0]), it_cap,
+            p(X), p(bank), p(sched), p(Pinv), p(edges.src), p(edges.dst),
+            p(edges.R), p(edges.t), p(kw), p(tw), p(edges.pull), p(offsets),
+            p(adj), p(rel0), p(cost0),
+            p(X_out), p(rel), p(stats), p(rel_hist), p(work),
+            run["it0"], run["last_wu"], int(run["gnc_pending"]), int(run["gnc"]),
+            run["inner"], int(inner_tol is not None),
+            float(inner_tol if inner_tol is not None else 0.0), run["tol"],
+            run["rgd_stepsize"],
+            int(params.max_iterations), int(params.max_tcg_iterations),
+            float(params.gradnorm_tol), float(params.initial_radius),
+            float(params.max_radius), float(params.tcg_kappa),
+            float(params.tcg_theta),
+            ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"rtr_run launch failed: cudaError {rc}")
+    RUN_LAUNCHES += 1
+    out = (X_out, rel, stats)
+    return out + (rel_hist,) if run["record"] else out
+
+
+def _run_stops(maxrel: float, it2: int, run) -> bool:
+    """K2's exit test after a step (or on entry, as termination only)."""
+    ready = maxrel < run["tol"]
+    if not run["gnc"]:
+        return ready
+    pending = run["gnc_pending"]
+    if run["inner_tol"] is not None:
+        fire = maxrel < run["inner_tol"] or it2 - run["last_wu"] >= run["inner"]
+    else:
+        fire = it2 % run["inner"] == 0
+    return (ready and not pending) or (fire and pending)
+
+
+def rgd_step(X, mask, Pinv, edges, stepsize: float) -> torch.Tensor:
+    """One preconditioned projected-gradient step on the masked block and
+    its retraction: X ← Retr(X, −s · m·proj(X, (m·proj(X, ∇f)) P⁻¹))."""
+    m3 = mask.reshape(-1, 1, 1)
+    g = m3 * stiefel.proj_tangent(X, quadratic.egrad(X, edges))
+    z = m3 * stiefel.proj_tangent(X, quadratic.precond_apply(Pinv, g))
+    return stiefel.retract_polar_ns(X, -stepsize * z)
+
+
+def rtr_run_fused_ref(
+    X, mask_bank, sched, Pinv, edges, params, *, adj, rel0, cost0, offsets,
+    it0, last_wu, gnc_pending, it_cap, tol, gnc, inner, inner_tol, record,
+    rgd_stepsize,
+):
+    """Plain PyTorch version of K2: a Python loop over steps on the ported
+    ``rtr_solve`` (or :func:`rgd_step`), with K2's step semantics; the exit
+    tests are read on the host. Runs on any device."""
+    run = dict(it0=it0, last_wu=last_wu, gnc_pending=gnc_pending, tol=tol,
+               gnc=gnc, inner=inner, inner_tol=inner_tol)
+    bounds = [int(o) for o in offsets.tolist()]
+    sched_h = sched.tolist()
+    rel = rel0.clone()
+    cost = cost0.reshape(()).clone()
+    R = rel.shape[0]
+    rel_hist = (
+        torch.full((it_cap, R), float("nan"), dtype=X.dtype, device=X.device)
+        if record else None
+    )
+    it, tcg = it0, 0
+    stop = float(rel.max()) < tol and not (gnc and gnc_pending)
+    while not stop and it < it_cap:
+        m = mask_bank[sched_h[it]]
+        if rgd_stepsize > 0:
+            Xf, k = rgd_step(X, m, Pinv, edges, rgd_stepsize), 1
+        else:
+            Xf, res = rtr_solve(X, edges, m.reshape(-1, 1, 1), Pinv, params)
+            cost, k = res.f_opt, res.tcg_iterations
+        moved, upd = _moved_updated(X, Xf, m, bounds)
+        X = torch.where(m[:, None, None] > 0, Xf, X)
+        rel = torch.where(upd > 0, moved, torch.maximum(rel, (moved * upd) @ adj))
+        if record:
+            rel_hist[it] = rel
+        it += 1
+        tcg += k
+        stop = _run_stops(float(rel.max()), it, run)
+    stats = torch.tensor([0.0, it, it - it0, tcg], dtype=X.dtype, device=X.device)
+    stats[RUN_COST] = cost
+    out = (X, rel, stats)
+    return out + (rel_hist,) if record else out

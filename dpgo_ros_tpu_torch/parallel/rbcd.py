@@ -9,10 +9,20 @@ coordinate descent over robot pose blocks on one global lifted state X.
   edge); all robots of one color update at once as one masked solve on the
   union mask, whose Hessian is block-diagonal across the color class.
 
-Each block update is one ``fused_rtr.rtr_solve_fused`` call: the CUDA
-kernel on a CUDA device (float32 only), its plain version on the CPU.
-Acceleration, robust costs (GNC) and the Uniform
-rule are not ported yet and raise ``NotImplementedError``.
+Two runners drive the same step semantics:
+
+* :meth:`RBCDEngine.run` (``--mode engine``) — a host loop; each block
+  update is one ``fused_rtr.rtr_solve_fused`` call (K1).
+* :meth:`RBCDEngine.make_fused_run` (``--mode fused``) — one
+  ``fused_rtr.rtr_run_fused`` call (K2) per stretch between GNC weight
+  rounds; an L2 run is one call.
+
+Each call is the CUDA kernel on a CUDA device (float32 only) and its plain
+version on the CPU. Robust costs run weight rounds between steps: GNC-TLS
+(graduated non-convexity with truncated least squares) or plain IRLS for
+L1/Huber/TLS/GM (reference ``commandCallback(UPDATE_WEIGHT)``,
+``PGOAgentROS.cpp:1211-1233``). Acceleration and the Uniform rule are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from dpgo_ros_tpu.utils.config import (
     SolverMethod,
     UpdateRule,
 )
+from dpgo_ros_tpu_torch.models import robust
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import chordal as chordal_ops
@@ -98,14 +109,10 @@ class RBCDEngine:
             )
         if cfg.acceleration:
             _not_ported("acceleration")
-        if cfg.robust_cost_type != RobustCostType.L2:
-            _not_ported(f"robust cost {cfg.robust_cost_type.value}")
         if cfg.update_rule == UpdateRule.UNIFORM:
             _not_ported("the Uniform update rule")
         if cfg.solver != SolverMethod.RTR:
             _not_ported(f"the {cfg.solver.value} local solver")
-        if cfg.local_initialization_method == InitMethod.GNC_TLS:
-            _not_ported("GNC_TLS local initialization")
         if cfg.relative_change_metric != "block_frobenius":
             _not_ported(f"relative_change_metric={cfg.relative_change_metric}")
         if self.device.type == "cuda":
@@ -164,6 +171,20 @@ class RBCDEngine:
             colors[k] = c
         return colors
 
+    def mask_bank_and_schedule(self, max_iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K2's operands for the update rule: the (m, n) mask bank (robot
+        blocks for RoundRobin, colour unions for Parallel) and the
+        (max_iters,) int32 bank row of each absolute iteration, built on
+        the host."""
+        if self.config.update_rule == UpdateRule.PARALLEL:
+            bank, m = self._color_masks, self.num_colors
+        else:
+            bank, m = self._masks, self.problem.num_robots
+        sched = torch.as_tensor(
+            np.arange(max_iters) % m, dtype=torch.int32, device=self.device
+        )
+        return bank[:, :, 0, 0].contiguous(), sched
+
     # ------------------------------------------------------------------ init
 
     def _edges(self, weights: torch.Tensor) -> EdgeSet:
@@ -189,6 +210,7 @@ class RBCDEngine:
                     rel[f, :, d] = t[a]
             return lie.odometry_chain(self._t(rel))
         sel = np.asarray(mine)
+        odo = np.asarray(m.edge_type[sel] == EdgeType.ODOMETRY)
         E = int(sel.sum())
         es = EdgeSet(
             src=torch.as_tensor(m.src_frame[sel], dtype=torch.int64, device=self.device),
@@ -205,7 +227,20 @@ class RBCDEngine:
                 dtype=torch.int32, device=self.device,
             ),
         )
-        return chordal_ops.chordal_initialization(es, nk, max_iters=500)
+        T = chordal_ops.chordal_initialization(es, nk, max_iters=500)
+        if cfg.local_initialization_method == InitMethod.GNC_TLS:
+            # annealed truncation of private loop closures whose residual
+            # exceeds a shrinking cutoff, re-solving chordally each round;
+            # never below robust_init_min_inliers inlier loops (reference
+            # PGOAgentROSNode.cpp:212-221)
+            for factor in (10.0, 3.0, 1.5):
+                r_e = robust.measurement_residuals(T, es).cpu().numpy()
+                keep = odo | (r_e <= factor * cfg.GNC_barc)
+                if int((keep & ~odo).sum()) < cfg.robust_init_min_inliers:
+                    break
+                es = dataclasses.replace(es, weight=self._t(keep.astype(np.float64)))
+                T = chordal_ops.chordal_initialization(es, nk, max_iters=500)
+        return T
 
     def _align_robot_frames(self, local_trajs: List[torch.Tensor]) -> torch.Tensor:
         """BFS frame alignment over the robot adjacency graph through shared
@@ -249,12 +284,14 @@ class RBCDEngine:
     def initialize(
         self,
         trajectory: Optional[np.ndarray] = None,
-        ylift: Optional[np.ndarray] = None,
+        ylift=None,
     ) -> RBCDState:
         """Local init per robot → frame alignment → anchor → lift through
-        the shared YLift. ``ylift`` (r, d) overrides the sampled lifting
-        matrix (the only random input of the main path); otherwise it is
-        drawn from a CPU ``torch.Generator`` seeded with ``config.seed``."""
+        the shared YLift. ``ylift`` (r, d), an array or a tensor, overrides
+        the sampled lifting matrix (the only random input of the main
+        path); otherwise it is drawn from a CPU ``torch.Generator`` seeded
+        with ``config.seed``. Robust costs start with the loop closures'
+        weights free (``fixed_mask = 1 − is_loop``), L2 with all fixed."""
         prob, cfg = self.problem, self.config
         if trajectory is None:
             locals_ = [self._local_subgraph_traj(k) for k in range(prob.num_robots)]
@@ -265,7 +302,9 @@ class RBCDEngine:
         else:
             T = self._t(trajectory)
         T = rounding.anchor_to_first_pose(T)
-        if ylift is not None:
+        if isinstance(ylift, torch.Tensor):
+            self.Ylift = ylift.to(dtype=self.dtype, device=self.device)
+        elif ylift is not None:
             self.Ylift = self._t(ylift)
         elif prob.r == prob.d:
             self.Ylift = torch.eye(prob.d, dtype=self.dtype, device=self.device)
@@ -276,6 +315,11 @@ class RBCDEngine:
             )
         X = stiefel.lift_trajectory(T, self.Ylift).contiguous()
         weights = prob.edges.weight.clone()
+        fixed = (
+            torch.ones_like(weights)
+            if cfg.robust_cost_type == RobustCostType.L2
+            else 1.0 - prob.edges.is_loop
+        )
         return RBCDState(
             X=X,
             X_prev=X,
@@ -288,7 +332,7 @@ class RBCDEngine:
                 device=self.device,
             ),
             weights=weights,
-            fixed_mask=torch.ones_like(weights),
+            fixed_mask=fixed,
             mu=self._t(cfg.GNC_init_mu),
             weight_update_count=0,
         )
@@ -303,23 +347,24 @@ class RBCDEngine:
         ).contiguous()
 
     def _local_solve(self, X, e, mask, Pinv) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One masked block solve → (X_new, f_opt): the kernel for CUDA
+        """One masked block solve → (X_new, K1 stats): the kernel for CUDA
         tensors, its plain version for CPU tensors."""
         Xk, stats = fused_rtr.rtr_solve_fused(
             X, mask, Pinv, e, self.rtr_params, offsets=self._offsets
         )
-        return torch.where(mask > 0, Xk, X), stats[fused_rtr.S_F].to(self.dtype)
+        return torch.where(mask > 0, Xk, X), stats
 
     def _block_update(self, st: RBCDState, mask, e, Pinv):
-        """One masked block update (no acceleration): (X_new, V_new, f, θ)."""
-        X_new, f_opt = self._local_solve(st.X, e, mask, Pinv)
-        return X_new, X_new, f_opt, st.theta
+        """One masked block update (no acceleration): (X_new, V_new, stats, θ)."""
+        X_new, stats = self._local_solve(st.X, e, mask, Pinv)
+        return X_new, X_new, stats, st.theta
 
-    def _finish_step(self, st: RBCDState, X_new, V_new, f_opt, theta, mask):
+    def _finish_step(self, st: RBCDState, X_new, V_new, stats, theta, mask):
         """Per-robot block-Frobenius relative change, with the neighbour
         invalidation bump: a robot not updated this step keeps at least
         max_k adj[k, j] · moved_k, so termination needs a quiescent
-        neighbourhood. Returns (state, rel change of this step)."""
+        neighbourhood. Returns (state, rel change of this step, tCG
+        iterations of the solve)."""
         per_pose2 = torch.sum((X_new - st.X) ** 2, dim=(-2, -1))
         sel = mask[:, 0, 0]
         moved = torch.sqrt(self._onehot @ (sel * per_pose2))
@@ -329,19 +374,15 @@ class RBCDEngine:
         rel_change = torch.where(
             updated > 0, moved, torch.maximum(st.rel_change, bump)
         )
-        return RBCDState(
+        return st._replace(
             X=X_new,
             X_prev=torch.where(mask > 0, st.X, st.X_prev),
             V=V_new,
             theta=theta,
             iteration=st.iteration + 1,
-            cost=f_opt,
+            cost=stats[fused_rtr.S_F].to(self.dtype),
             rel_change=rel_change,
-            weights=st.weights,
-            fixed_mask=st.fixed_mask,
-            mu=st.mu,
-            weight_update_count=st.weight_update_count,
-        ), rc
+        ), rc, stats[fused_rtr.S_TCG]
 
     def _step_sequential_impl(self, st: RBCDState, robot: int, Pinv=None):
         """The robot holding the update token optimizes its block."""
@@ -357,6 +398,72 @@ class RBCDEngine:
         Pinv = Pinv if Pinv is not None else self._solver_cache(e)
         return self._finish_step(st, *self._block_update(st, mask, e, Pinv), mask)
 
+    def _weight_update_impl(self, st: RBCDState) -> RBCDState:
+        """Robust weight round (reference UPDATE_WEIGHT): residuals on the
+        rounded trajectory; GNC-TLS weights under the scheduled μ, or IRLS
+        weights for L1/Huber/TLS/GM; optional freeze of weights that fell
+        below ``weight_convergence_threshold`` (rejected and fixed, as the
+        reference does). Drops the momentum and sets rel change to inf."""
+        cfg = self.config
+        e = self._edges(st.weights)
+        r = robust.measurement_residuals(rounding.round_solution(st.X), e)
+        if cfg.robust_cost_type == RobustCostType.GNC_TLS:
+            mu_use, barc_use = robust.gnc_round_params(
+                st.weight_update_count, cfg, st.mu, residuals=r,
+                loop_mask=e.is_loop * e.mask, dtype=self.dtype,
+            )
+            w_new, _ = robust.update_weights_gnc(
+                st.weights, st.fixed_mask, r, mu_use, barc_use, cfg.GNC_mu_step
+            )
+        else:
+            w_irls = robust.robust_weight(cfg.robust_cost_type.value, r, cfg.GNC_barc)
+            w_new = torch.where(st.fixed_mask > 0, st.weights, w_irls)
+        fixed = st.fixed_mask
+        if cfg.weight_convergence_threshold > 0:
+            newly = (fixed == 0) & (w_new < cfg.weight_convergence_threshold)
+            w_new = torch.where(newly, torch.zeros_like(w_new), w_new)
+            fixed = torch.where(newly, torch.ones_like(fixed), fixed)
+        return RBCDState(
+            X=st.X,
+            X_prev=st.X,
+            V=st.X,
+            theta=self._t(1.0),
+            iteration=st.iteration,
+            cost=quadratic.cost(st.X, self._edges(w_new)),
+            rel_change=torch.full_like(st.rel_change, float("inf")),
+            weights=w_new,
+            fixed_mask=fixed,
+            mu=st.mu * cfg.GNC_mu_step,
+            weight_update_count=st.weight_update_count + 1,
+        )
+
+    def _reset(self, st: RBCDState) -> RBCDState:
+        """Re-initialization after an early weight round (reference
+        robustOptNumResets, PGOAgentROSNode.cpp:212-221): a fresh initial
+        state lifted through the engine's current YLift, keeping the
+        weights, the GNC state and the iteration counter."""
+        st2 = self.initialize(ylift=self.Ylift)
+        return st2._replace(
+            weights=st.weights,
+            fixed_mask=st.fixed_mask,
+            mu=st.mu,
+            weight_update_count=st.weight_update_count,
+            iteration=st.iteration,
+            cost=quadratic.cost(st2.X, self._edges(st.weights)),
+        )
+
+    def _round_due(self, it: int, last_wu: int, rel: np.ndarray, wuc: int) -> bool:
+        """Whether a weight round fires before global iteration ``it``: on
+        the fixed cadence, or, with ``robust_opt_inner_tol``, once every
+        robot's rel change is below it (the cadence stays as a cap)."""
+        cfg = self.config
+        inner = cfg.robust_opt_inner_iters_per_robot * self.problem.num_robots
+        if cfg.robust_opt_inner_tol is not None:
+            fire = bool(np.all(rel < cfg.robust_opt_inner_tol)) or it - last_wu >= inner
+        else:
+            fire = it % inner == 0
+        return it > 0 and fire and wuc < cfg.robust_opt_num_weight_updates
+
     # ------------------------------------------------------------------ run
 
     def run(
@@ -365,31 +472,47 @@ class RBCDEngine:
         max_iters: Optional[int] = None,
         callback=None,
     ) -> Tuple[RBCDState, Dict]:
-        """Scheduled block updates until every robot's relative change is
-        below ``relative_change_tolerance`` or ``max_iters`` updates ran.
-        Returns (final_state, info) with the per-iteration history."""
+        """Scheduled block updates, with weight rounds for robust costs,
+        until every robot's relative change is below
+        ``relative_change_tolerance`` and no weight round is pending, or
+        ``max_iters`` updates ran. Returns (final_state, info) with the
+        per-iteration history, the total tCG iterations and, for robust
+        costs, ``gnc_stats``."""
         cfg, prob = self.config, self.problem
         if state is None:
             state = self.initialize()
         max_iters = max_iters or cfg.max_iteration_number
+        gnc = cfg.robust_cost_type != RobustCostType.L2
         history: Dict[str, list] = {
             "iteration": [], "cost": [], "rel_change": [],
-            "rel_change_robots": [], "iter_time_sec": [],
+            "rel_change_robots": [], "iter_time_sec": [], "event": [],
         }
         t_start = time.time()
         Pinv = self._solver_cache(self._edges(state.weights))
+        tcg = torch.zeros((), dtype=self.dtype, device=self.device)
         it = 0
-        rel = np.asarray(state.rel_change.cpu())
+        last_wu = state.iteration
+        rel = state.rel_change.cpu().numpy().astype(np.float64)
         while it < max_iters:
+            if gnc and self._round_due(
+                state.iteration, last_wu, rel, state.weight_update_count
+            ):
+                last_wu = state.iteration
+                state = self._weight_update_impl(state)
+                history["event"].append((it, "UPDATE_WEIGHT"))
+                if state.weight_update_count <= cfg.robust_opt_num_resets:
+                    state = self._reset(state)
+                Pinv = self._solver_cache(self._edges(state.weights))
             t0 = time.time()
             if cfg.update_rule == UpdateRule.PARALLEL:
-                state, rc = self._step_parallel_impl(
+                state, rc, k = self._step_parallel_impl(
                     state, state.iteration % self.num_colors, Pinv
                 )
             else:
-                state, rc = self._step_sequential_impl(
+                state, rc, k = self._step_sequential_impl(
                     state, state.iteration % prob.num_robots, Pinv
                 )
+            tcg = tcg + k
             rel = state.rel_change.cpu().numpy().astype(np.float64)
             it += 1
             history["iteration"].append(it)
@@ -399,7 +522,7 @@ class RBCDEngine:
             history["iter_time_sec"].append(time.time() - t0)
             if callback is not None:
                 callback(it, state)
-            if bool(np.all(rel < cfg.relative_change_tolerance)):
+            if self._terminated(rel, state.weight_update_count):
                 break
         info = {
             "history": history,
@@ -407,10 +530,130 @@ class RBCDEngine:
             "total_time_sec": time.time() - t_start,
             "final_cost": float(state.cost),
             "converged": bool(np.all(rel < cfg.relative_change_tolerance)),
+            "tcg_iterations": int(tcg),
         }
+        if gnc:
+            info.update(self.gnc_info(state.weights))
         return state, info
 
+    def _terminated(self, rel: np.ndarray, wuc: int) -> bool:
+        """Every robot's rel change below tol and no weight round pending."""
+        cfg = self.config
+        ready = bool(np.all(rel < cfg.relative_change_tolerance))
+        return ready and (
+            cfg.robust_cost_type == RobustCostType.L2
+            or wuc >= cfg.robust_opt_num_weight_updates
+        )
+
+    def gnc_info(self, weights: torch.Tensor) -> Dict:
+        """``gnc_stats`` (accepted / rejected / undecided loop closures and
+        the decided share) and ``gnc_converged`` (that share against
+        ``robust_opt_min_convergence_ratio``)."""
+        e = self.problem.edges
+        acc, rej, und = robust.classify_weights(weights, e.is_loop, e.mask)
+        ratio = (acc + rej) / max(acc + rej + und, 1)
+        return {
+            "gnc_stats": {"accepted": acc, "rejected": rej, "undecided": und,
+                          "convergence_ratio": ratio},
+            "gnc_converged": ratio >= self.config.robust_opt_min_convergence_ratio,
+        }
+
+    def make_fused_run(self, max_iters: int, record: bool = False,
+                       return_stats: bool = False):
+        """A runner ``run(state)`` that executes the solve as K2 launches
+        (``fused_rtr.rtr_run_fused``): one launch per stretch between GNC
+        weight rounds, so an L2 run is one launch. The weight rounds run
+        between launches, on the device, with the engine's own
+        :meth:`_weight_update_impl`; a reset after one of the first
+        ``robust_opt_num_resets`` rounds sets X back to the run's starting
+        state. The schedule and mask bank are built on the host
+        (:meth:`mask_bank_and_schedule`) and ``max_iters`` is the absolute
+        iteration cap.
+
+        ``record=True`` returns ``(state, rel_hist (max_iters, R) with NaN
+        rows for iterations not run, event_hist (max_iters,) int8 with 1
+        where a weight round fired)``; ``return_stats=True`` appends the
+        total tCG iterations.
+        """
+        cfg, prob = self.config, self.problem
+        gnc = cfg.robust_cost_type != RobustCostType.L2
+        inner = cfg.robust_opt_inner_iters_per_robot * prob.num_robots
+        bank, sched = self.mask_bank_and_schedule(max_iters)
+        R = prob.num_robots
+
+        def run(st: RBCDState):
+            X0 = st.X
+            X, it, cost, rel = st.X, st.iteration, st.cost, st.rel_change
+            w, fixed, mu, wuc = st.weights, st.fixed_mask, st.mu, st.weight_update_count
+            last_wu = it
+            Pinv = self._solver_cache(self._edges(w))
+            if record:
+                rel_h = torch.full((max_iters, R), float("nan"), dtype=self.dtype,
+                                   device=self.device)
+                ev_h = torch.zeros((max_iters,), dtype=torch.int8)
+            tcg = 0
+            while it < max_iters:
+                rel_np = rel.cpu().numpy().astype(np.float64)
+                if self._terminated(rel_np, wuc):
+                    break
+                if gnc and self._round_due(it, last_wu, rel_np, wuc):
+                    last_wu = it
+                    s2 = self._weight_update_impl(RBCDState(
+                        X=X, X_prev=X, V=X, theta=st.theta, iteration=it,
+                        cost=cost, rel_change=rel, weights=w, fixed_mask=fixed,
+                        mu=mu, weight_update_count=wuc,
+                    ))
+                    w, fixed, mu, wuc = s2.weights, s2.fixed_mask, s2.mu, s2.weight_update_count
+                    cost, rel = s2.cost, s2.rel_change
+                    if wuc <= cfg.robust_opt_num_resets:
+                        X = X0
+                        cost = quadratic.cost(X, self._edges(w))
+                    Pinv = self._solver_cache(self._edges(w))
+                    if record:
+                        ev_h[it] = 1
+                out = fused_rtr.rtr_run_fused(
+                    X, bank, sched, Pinv, self._edges(w), self.rtr_params,
+                    adj=self._adjf, rel0=rel, it0=it, last_wu=last_wu,
+                    gnc_pending=gnc and wuc < cfg.robust_opt_num_weight_updates,
+                    cost0=cost, it_cap=max_iters,
+                    tol=cfg.relative_change_tolerance, gnc=gnc, inner=inner,
+                    inner_tol=cfg.robust_opt_inner_tol, record=record,
+                    offsets=self._offsets,
+                )
+                X, rel, stats = out[:3]
+                cost = stats[fused_rtr.RUN_COST].to(self.dtype)
+                _, it_f, _, tcg_f = stats.tolist()
+                it, tcg = int(it_f), tcg + int(tcg_f)
+                if record:
+                    rel_h = torch.where(torch.isnan(out[3]), rel_h, out[3])
+            state = RBCDState(
+                X=X, X_prev=X, V=X, theta=st.theta, iteration=it, cost=cost,
+                rel_change=rel, weights=w, fixed_mask=fixed, mu=mu,
+                weight_update_count=wuc,
+            )
+            extras = [rel_h, ev_h] if record else []
+            if return_stats:
+                extras.append(tcg)
+            return (state, *extras) if extras else state
+
+        return run
+
     def finalize(self, state: RBCDState) -> Tuple[np.ndarray, RBCDState]:
-        """Round to SE(d) and anchor the first pose (L2 TERMINATE)."""
+        """TERMINATE semantics (reference ``PGOAgentROS.cpp:1036-1082``):
+        under GNC_TLS, settle the undecided loop-closure weights by final
+        residual (``gnc_finalize_by_residual``) or reject them; then round
+        to SE(d) and anchor the first pose."""
+        cfg = self.config
+        if cfg.robust_cost_type == RobustCostType.GNC_TLS:
+            w = state.weights
+            und = (self.problem.edges.is_loop > 0) & (w > 1e-6) & (w < 1.0 - 1e-6)
+            if cfg.gnc_finalize_by_residual:
+                r = robust.measurement_residuals(
+                    rounding.round_solution(state.X), self._edges(w)
+                )
+                w = torch.where(und, (r <= cfg.GNC_barc).to(w.dtype), w)
+            else:
+                w = torch.where(und, torch.zeros_like(w), w)
+            state = state._replace(weights=w)
         T = rounding.anchor_to_first_pose(rounding.round_solution(state.X))
         return T.cpu().numpy(), state

@@ -3,18 +3,19 @@
 
 Run from the repository root on a machine with one CUDA GPU:
 
-    python3 profile_main_path.py [--top 12]
+    python3 profile_main_path.py [--mode engine|fused] [--top 12]
 
 Runs the CLI main path (``--demo dpgo_demo --synthetic sphere
---synthetic_n 2500 --device cuda``) once to build the block-solve kernel
+--synthetic_n 2500 --device cuda --mode MODE``) once to build the kernels
 and load the CUDA libraries, then once more under ``torch.profiler``.
 From the profiled run's trace it prints:
 
 * the CLI's wall split (init / solve / rounding / export);
 * device busy time: the union of the intervals of kernel, memcpy and
   memset events on the card;
-* the block-solve kernel's device time, its share of busy time and its
-  mean per launch;
+* the device time of the block-solve kernel (K1, engine mode) and of the
+  multi-step kernel (K2, fused mode), each with its share of busy time,
+  its launches and its mean per launch;
 * the idle share, 1 − busy / wall, where wall is the host time of the
   profiled ``cli.run`` call;
 * the ``--top`` operators by device time.
@@ -41,7 +42,7 @@ from dpgo_ros_tpu_torch import cli
 from dpgo_ros_tpu_torch.ops import fused_rtr
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-KERNEL_NAME = "rtr_block_kernel"
+KERNELS = {"k1": "rtr_block_kernel", "k2": "rtr_run_kernel"}
 ARGV = ["--demo", "dpgo_demo", "--synthetic", "sphere", "--synthetic_n", "2500",
         "--device", "cuda"]
 
@@ -59,6 +60,7 @@ def busy_us(events) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--mode", choices=["engine", "fused"], default="engine")
     ap.add_argument("--top", type=int, default=12)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -69,18 +71,19 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
 
-    summary, extras = cli.run(ARGV)  # build, library loads, allocator warm-up
+    argv = ARGV + ["--mode", a.mode]
+    summary, extras = cli.run(argv)  # build, library loads, allocator warm-up
     print("warm-up run: " + json.dumps(summary), flush=True)
     print("warm-up timing_sec " + json.dumps(extras["timing_sec"]), flush=True)
 
-    fused_rtr.LAUNCHES = 0
+    fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.time()
-        summary, extras = cli.run(ARGV)
+        summary, extras = cli.run(argv)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
-    launches = fused_rtr.LAUNCHES
+    launches = {"k1": fused_rtr.LAUNCHES, "k2": fused_rtr.RUN_LAUNCHES}
     print("profiled run: " + json.dumps(summary), flush=True)
     print("profiled timing_sec " + json.dumps(extras["timing_sec"]), flush=True)
 
@@ -94,30 +97,32 @@ def main(argv=None) -> int:
     if not dev:
         raise SystemExit("profile_main_path: the trace holds no device events")
     busy_ms = busy_us(dev) / 1e3
-    k1 = [e for e in dev if KERNEL_NAME in e.get("name", "")]
-    k1_ms = sum(e["dur"] for e in k1) / 1e3
-    assert len(k1) == launches == extras["block_updates"] > 0, (
-        len(k1), launches, extras["block_updates"])
+    out = {"card": card, "mode": a.mode, "wall_ms": wall_ms,
+           "timing_sec": extras["timing_sec"], "device_busy_ms": busy_ms}
+    for key, name in KERNELS.items():
+        ev = [e for e in dev if name in e.get("name", "")]
+        ms = sum(e["dur"] for e in ev) / 1e3
+        assert len(ev) == launches[key], (key, len(ev), launches)
+        out.update({f"{key}_ms": ms, f"{key}_launches": len(ev),
+                    f"{key}_ms_per_launch": ms / max(len(ev), 1),
+                    f"{key}_share_of_busy": ms / busy_ms})
+    if a.mode == "engine":
+        assert launches["k1"] == extras["block_updates"] > 0 and launches["k2"] == 0
+    else:
+        assert launches["k2"] == 1 and launches["k1"] == 0, launches
 
     rows = sorted(prof.key_averages(), key=lambda r: -r.device_time_total)
     for r in rows[:a.top]:
         print(f"  {r.key[:70]:70s} calls {r.count:6d} device "
               f"{r.device_time_total / 1e3:10.3f} ms")
-    out = {
-        "card": card,
-        "wall_ms": wall_ms,
-        "timing_sec": extras["timing_sec"],
-        "device_busy_ms": busy_ms,
-        "k1_ms": k1_ms,
-        "k1_launches": len(k1),
-        "k1_ms_per_launch": k1_ms / len(k1),
-        "k1_share_of_busy": k1_ms / busy_ms,
+    out.update({
         "idle_share": 1.0 - busy_ms / wall_ms,
         "iterations": summary["iterations"],
         "final_cost": summary["final_cost"],
-    }
-    print(f"device busy {busy_ms:.3f} ms, K1 {k1_ms:.3f} ms "
-          f"({100 * out['k1_share_of_busy']:.1f} %), wall {wall_ms:.1f} ms, "
+    })
+    print(f"device busy {busy_ms:.3f} ms, K1 {out['k1_ms']:.3f} ms "
+          f"({100 * out['k1_share_of_busy']:.1f} %), K2 {out['k2_ms']:.3f} ms "
+          f"({100 * out['k2_share_of_busy']:.1f} %), wall {wall_ms:.1f} ms, "
           f"idle share {out['idle_share']:.3f}")
     print(json.dumps(out))
     return 0

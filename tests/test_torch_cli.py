@@ -22,6 +22,7 @@ from dpgo_ros_tpu.utils.config import AgentConfig, InitMethod, UpdateRule
 from dpgo_ros_tpu_torch import cli
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
+import torch_parity  # noqa: F401  (one torch thread per test process)
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = ["--synthetic", "grid3d", "--synthetic_n", "64", "--num_robots", "2",
@@ -47,7 +48,8 @@ def test_cli_end_to_end_matches_engine(tmp_path, rule, capsys):
     assert set(summary) >= {"iterations", "final_cost", "wall_time_sec",
                             "ate_vs_ground_truth"}
     timing = json.loads(err.split("timing_sec ", 1)[1].splitlines()[0])
-    assert set(timing) == {"init", "solve", "rounding", "export"}
+    assert set(timing) == {"init", "solve", "rounding", "export", "tcg_iterations"}
+    assert timing["tcg_iterations"] >= summary["iterations"]
     for suffix in ["_global.g2o", "_robot0.tum", "_robot1.tum", ".html"]:
         assert Path(prefix + suffix).stat().st_size > 0
     assert math.isfinite(summary["ate_vs_ground_truth"])
@@ -93,6 +95,22 @@ def test_import_and_run_load_no_jax():
     assert "JAX_FREE" in proc.stdout
 
 
+def test_fused_gnc_run_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import dpgo_ros_tpu_torch.cli, dpgo_ros_tpu_torch.models.robust\n"
+        "dpgo_ros_tpu_torch.cli.run(sys.argv[1:])\n"
+        "assert 'jax' not in sys.modules, 'run loaded jax'\n"
+        "print('JAX_FREE')\n"
+    )
+    proc = _subprocess(code, *SMALL, "--mode", "fused", "--robust_cost_type",
+                       "GNC_TLS", "--robust_opt_num_weight_updates", "1",
+                       "--robust_opt_inner_iters_per_robot", "2",
+                       "--update_rule", "RoundRobin")
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX_FREE" in proc.stdout
+
+
 def test_cuda_without_card_exits_nonzero():
     proc = _subprocess(
         "import sys, torch\n"
@@ -112,3 +130,77 @@ def test_usage_error_without_input():
     with pytest.raises(SystemExit) as exc:
         cli.run(["--device", "cpu"])
     assert exc.value.code == 2
+
+
+SPHERE = ["--demo", "dpgo_demo", "--synthetic", "sphere", "--synthetic_n", "256",
+          "--device", "cpu"]
+
+
+def test_fused_and_engine_modes_agree():
+    """--mode fused (one K2 call) and --mode engine (one K1 call per block
+    update) run the same steps."""
+    s_e, x_e = cli.run(SPHERE + ["--mode", "engine"])
+    s_f, x_f = cli.run(SPHERE + ["--mode", "fused"])
+    assert (s_e["mode"], s_f["mode"]) == ("engine", "fused")
+    assert s_f["iterations"] == s_e["iterations"] > 0
+    assert s_f["final_cost"] == pytest.approx(s_e["final_cost"], rel=1e-6)
+    assert x_f["timing_sec"]["tcg_iterations"] == x_e["timing_sec"]["tcg_iterations"]
+    assert s_f["ate_vs_ground_truth"] == pytest.approx(s_e["ate_vs_ground_truth"], rel=1e-5)
+
+
+def test_gnc_demo_reports_outliers(capsys):
+    argv = ["--demo", "dpgo_gnc_demo", "--synthetic", "sphere", "--synthetic_n",
+            "256", "--synthetic_outlier_ratio", "0.2", "--device", "cpu"]
+    assert cli.main(argv) == 0
+    out, _ = capsys.readouterr()
+    summary = json.loads(out.strip().splitlines()[-1])
+    gs, og = summary["gnc_stats"], summary["outlier_ground_truth"]
+    assert set(gs) == {"accepted", "rejected", "undecided", "convergence_ratio"}
+    assert og["planted"] == 48  # 20 % of the 240 loop closures
+    assert og["rejected_true"] + og["missed"] == og["planted"]
+    assert og["rejected_true"] >= 0.9 * og["planted"]
+    assert og["rejected_false"] <= 0.1 * (240 - og["planted"])
+    assert math.isfinite(summary["ate_vs_ground_truth"])
+
+
+def test_gnc_demo_preset_yields_to_explicit_flags():
+    p = cli.build_parser()
+    a = p.parse_args(["--demo", "dpgo_gnc_demo", "--robust_opt_inner_tol", "0.3",
+                      "--num_robots", "4"])
+    cli.apply_demo(a, p)
+    assert (a.num_robots, a.robust_opt_inner_tol) == (4, 0.3)
+    assert (a.robust_cost_type, a.GNC_barc, a.GNC_use_probability) == ("GNC_TLS", 3.0, False)
+    assert (a.robust_opt_num_weight_updates, a.robust_opt_num_resets) == (3, 3)
+    assert (a.local_initialization_method, a.dataset) == ("Odometry", None)
+
+
+@pytest.mark.parametrize("mode", ["engine", "fused"])
+def test_log_directory_writes_per_robot_csvs(tmp_path, mode):
+    argv = SMALL + ["--robust_cost_type", "GNC_TLS", "--robust_opt_num_weight_updates",
+                    "1", "--robust_opt_inner_iters_per_robot", "2",
+                    "--update_rule", "RoundRobin", "--mode", mode,
+                    "--log_directory", str(tmp_path)]
+    summary, extras = cli.run(argv)
+    assert extras["weight_rounds"] == 1
+    for k in range(2):
+        (path,) = (tmp_path / f"agent{k}").glob("dpgo_log_*.csv")
+        lines = path.read_text().splitlines()
+        rows = [ln for ln in lines[1:] if ln.count(",") > 2]
+        assert len(rows) == summary["iterations"]
+        assert f"{k},UPDATE_WEIGHT" in lines and lines[-1] == f"{k},TERMINATE"
+
+
+def test_gnc_demo_without_synthetic_loads_tunnels():
+    """Without --synthetic the GNC demo reads the tunnels dataset, as the
+    JAX CLI does; where the data is absent that fails."""
+    p = cli.build_parser()
+    a = p.parse_args(["--demo", "dpgo_gnc_demo", "--device", "cpu"])
+    cli.apply_demo(a, p)
+    from dpgo_ros_tpu.io.datasets import tunnels_paths
+
+    if all(os.path.exists(q) for q in tunnels_paths(None, 8)):
+        data, gt, planted = cli.load_data(a)
+        assert data.num_robots == 8 and gt is None and planted is None
+    else:
+        with pytest.raises(OSError):
+            cli.load_data(a)

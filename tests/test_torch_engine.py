@@ -130,10 +130,12 @@ def test_every_block_update_goes_through_rtr_solve_fused(
 
 @pytest.mark.parametrize("what", ["acceleration", "gnc", "uniform"])
 def test_unported_features_raise(problems, what):
+    """Acceleration and the Uniform rule are not ported; GNC is, but not
+    under the asynchronous mode's RGD local solver."""
     _, tp = problems
     kw = {
         "acceleration": dict(acceleration=True),
-        "gnc": dict(robust_cost_type=RobustCostType.GNC_TLS),
+        "gnc": dict(robust_cost_type=RobustCostType.GNC_TLS, asynchronous=True),
         "uniform": dict(rule=UpdateRule.UNIFORM),
     }[what]
     with pytest.raises(NotImplementedError):
