@@ -9,13 +9,18 @@ Demo presets mirror the reference launch files:
   inner iterations per robot, 3 resets, odometry init, rounds fired on
   inner convergence (``robust_opt_inner_tol`` 0.15, as the JAX CLI does)
   (``launch/dpgo_gnc_demo.launch``; the tunnels dataset unless another
-  source is given).
+  source is given);
+* ``asapp_demo`` — 5 robots, asynchronous ASAPP, RGD stepsize 0.2 with the
+  preconditioner, rate 100 (1 step per tick), chordal init, staleness
+  K = max(3, ``--max_delayed_iterations``) (``launch/asapp_demo.launch``;
+  sphere2500 unless another source is given).
 
 ``--mode engine`` runs the host-driven loop, one launch of the CUDA
 block-solve kernel (K1) per block update; ``--mode fused`` runs one launch
 of the multi-step kernel (K2) per stretch between GNC weight rounds (one
-launch in all for an L2 run). On ``--device cpu`` both run the kernels'
-plain versions.
+launch in all for an L2 run); ``--mode async`` (or ``--asynchronous true``
+in engine mode) runs the ASAPP ticks, one launch of the tick kernel (K3)
+per tick. On ``--device cpu`` all run the kernels' plain versions.
 
 Examples::
 
@@ -25,13 +30,18 @@ Examples::
       --synthetic_n 2500 --synthetic_outlier_ratio 0.1
   python -m dpgo_ros_tpu_torch.cli --synthetic grid3d --synthetic_n 64 \\
       --num_robots 2 --device cpu --dtype float64
+  python -m dpgo_ros_tpu_torch.cli --demo asapp_demo --synthetic sphere \\
+      --synthetic_n 256 --device cpu
 
 Prints one JSON summary line on stdout (``mode``, ``iterations``,
 ``final_cost``, ``wall_time_sec``; ``gnc_stats`` for robust costs; for
 synthetic worlds ``ate_vs_ground_truth`` and, with planted outliers,
 ``outlier_ground_truth``) and the time split between init, solve,
-rounding and export, with the solve's tCG iterations, on stderr. Exits 2
-on usage errors, including ``--device cuda`` without a CUDA device.
+rounding and export, with the solve's tCG iterations, on stderr. The async
+mode prints the JAX CLI's async keys (``mode``, ``ticks``,
+``steps_per_tick``, ``converged``, ``final_cost``, ``wall_time_sec``) and
+keeps the ATE for the caller of :func:`run`. Exits 2 on usage errors,
+including ``--device cuda`` without a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ import dataclasses
 import json
 import sys
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="dpgo_ros_tpu_torch",
         description="distributed pose-graph optimization (PyTorch/CUDA port)",
     )
-    p.add_argument("--demo", choices=["dpgo_demo", "dpgo_gnc_demo"])
+    p.add_argument("--demo", choices=["dpgo_demo", "asapp_demo", "dpgo_gnc_demo"])
     p.add_argument("--g2o", help="path to a g2o dataset file")
     p.add_argument("--dataset", help="bundled dataset name (e.g. sphere2500)")
     p.add_argument(
@@ -70,9 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic_outlier_ratio", type=float, default=0.0,
                    help="share of the synthetic world's loop closures "
                         "replaced by gross outliers (exact labels)")
-    p.add_argument("--mode", choices=["engine", "fused"], default="engine",
+    p.add_argument("--mode", choices=["engine", "fused", "async"], default="engine",
                    help="engine: one block-solve launch per update; fused: "
-                        "one multi-step launch per GNC stretch")
+                        "one multi-step launch per GNC stretch; async: one "
+                        "ASAPP tick launch per tick (also selected by "
+                        "--asynchronous in engine mode)")
     p.add_argument("--output", help="output prefix for trajectory export")
     p.add_argument("--log_directory",
                    help="write the reference's per-robot telemetry CSVs here")
@@ -86,6 +98,20 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["Odometry", "Chordal", "GNC_TLS"], default="Odometry")
     p.add_argument("--update_rule", choices=["RoundRobin", "Parallel"],
                    default="RoundRobin")
+    p.add_argument("--asynchronous", type=_bool, default=False)
+    p.add_argument("--asynchronous_rate", type=float, default=10.0,
+                   help="local RGD loop rate in Hz; max(1, round(rate/100)) "
+                        "steps per tick")
+    p.add_argument("--RGD_stepsize", type=float, default=1e-3)
+    p.add_argument("--RGD_use_preconditioner", type=_bool, default=True)
+    p.add_argument("--max_delayed_iterations", type=int, default=3,
+                   help="staleness bound K of the async ring buffer")
+    p.add_argument("--asapp_tolerance", type=float, default=1e-3,
+                   help="async stop: every robot's movement per tick below "
+                        "this")
+    p.add_argument("--asapp_stepsize_decay_ticks", type=int, default=0,
+                   help="T0 of the async stepsize decay RGD_stepsize*T0/(T0+t); "
+                        "0 keeps it constant")
     p.add_argument("--robust_cost_type",
                    choices=["L2", "L1", "Huber", "TLS", "GM", "GNC_TLS"],
                    default="L2")
@@ -125,6 +151,16 @@ def apply_demo(a, parser) -> None:
             relative_change_tolerance=0.2,
             RTR_gradnorm_tol=0.5,
         )
+    elif a.demo == "asapp_demo":
+        preset = dict(
+            dataset=a.dataset or "sphere2500",
+            num_robots=5,
+            asynchronous=True,
+            asynchronous_rate=100.0,
+            RGD_stepsize=0.2,
+            local_initialization_method="Chordal",
+            max_delayed_iterations=max(a.max_delayed_iterations, 3),
+        )
     elif a.demo == "dpgo_gnc_demo":
         preset = dict(
             num_robots=8,
@@ -149,7 +185,7 @@ def apply_demo(a, parser) -> None:
 
 
 def args_to_config(a):
-    from dpgo_ros_tpu.utils.config import (
+    from dpgo_ros_tpu_torch.utils.config import (
         AgentConfig,
         InitMethod,
         RobustCostType,
@@ -181,6 +217,13 @@ def args_to_config(a):
         update_rule=UpdateRule(a.update_rule),
         max_iteration_number=a.max_iteration_number,
         relative_change_tolerance=a.relative_change_tolerance,
+        asynchronous=a.asynchronous,
+        asynchronous_rate=a.asynchronous_rate,
+        RGD_stepsize=a.RGD_stepsize,
+        RGD_use_preconditioner=a.RGD_use_preconditioner,
+        max_delayed_iterations=a.max_delayed_iterations,
+        asapp_tolerance=a.asapp_tolerance,
+        asapp_stepsize_decay_ticks=a.asapp_stepsize_decay_ticks,
         dtype=a.dtype,
         seed=a.seed,
     )
@@ -190,7 +233,7 @@ def load_data(a):
     """(data, ground truth or None, planted-outlier mask or None) for the
     selected source."""
     if a.synthetic:
-        from dpgo_ros_tpu.io.synthetic import generate_world
+        from dpgo_ros_tpu_torch.io.synthetic import generate_world
 
         kw = dict(n=a.synthetic_n)
         if a.synthetic == "grid3d":
@@ -201,15 +244,15 @@ def load_data(a):
             outlier_ratio=a.synthetic_outlier_ratio, **kw
         )
     if a.g2o:
-        from dpgo_ros_tpu.io.partition import partition_g2o
+        from dpgo_ros_tpu_torch.io.partition import partition_g2o
 
         return partition_g2o(a.g2o, a.num_robots), None, None
     if a.dataset:
-        from dpgo_ros_tpu.io.datasets import load_g2o_dataset
+        from dpgo_ros_tpu_torch.io.datasets import load_g2o_dataset
 
         return load_g2o_dataset(a.dataset, num_robots=a.num_robots), None, None
     if a.demo == "dpgo_gnc_demo":
-        from dpgo_ros_tpu.io.datasets import load_tunnels
+        from dpgo_ros_tpu_torch.io.datasets import load_tunnels
 
         return load_tunnels(num_robots=a.num_robots), None, None
     return None, None, None
@@ -221,11 +264,27 @@ def _clock(device: torch.device) -> float:
     return time.time()
 
 
+@dataclasses.dataclass
+class _Solved:
+    """What a mode's solve hands to the shared tail of :func:`run`."""
+
+    summary: Dict  # the mode's summary keys; the tail adds the wall time
+    extras: Dict
+    T: np.ndarray  # (n, d, d+1) rounded poses
+    weights: np.ndarray  # (E,) final edge weights, for the export
+    work: Tuple[str, int]  # the solve's work unit for the timing line
+    rows: Optional[np.ndarray] = None  # per-iteration rel changes (telemetry)
+    iter_times: Optional[np.ndarray] = None  # None: the solve's mean
+    events: List = dataclasses.field(default_factory=list)
+
+
 def run(argv=None) -> Tuple[Dict, Dict]:
     """Parse, solve, export. Returns (summary, extras): the JSON summary and
-    ``{"timing_sec": {init, solve, rounding, export, tcg_iterations},
-    "initial_cost", "block_updates", "weight_rounds", "weights"}`` (the
-    final weights as numpy). Raises SystemExit(2) on usage errors."""
+    ``{"timing_sec": {init, solve, rounding, export, tcg_iterations or
+    ticks}, "initial_cost", ...}`` with, for the RBCD modes,
+    ``"block_updates", "weight_rounds", "weights"`` (the final weights as
+    numpy) and, for the async mode, ``"ticks", "costs"`` and
+    ``"ate_vs_ground_truth"``. Raises SystemExit(2) on usage errors."""
     parser = build_parser()
     a = parser.parse_args(argv)
     apply_demo(a, parser)
@@ -235,99 +294,147 @@ def run(argv=None) -> Tuple[Dict, Dict]:
     if data is None:
         parser.exit(2, "error: provide --demo, --synthetic, --dataset or --g2o\n")
 
-    from dpgo_ros_tpu.utils import export
-    from dpgo_ros_tpu.utils.config import RobustCostType
     from dpgo_ros_tpu_torch.models.problem import LiftedProblem
     from dpgo_ros_tpu_torch.ops import rounding
     from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
+    from dpgo_ros_tpu_torch.utils import export
 
     cfg = dataclasses.replace(args_to_config(a), num_robots=data.num_robots)
     device = torch.device(a.device)
     dtype = torch.float64 if a.dtype == "float64" else torch.float32
+    is_async = a.mode == "async" or (a.asynchronous and a.mode == "engine")
 
     t0 = _clock(device)
     prob = LiftedProblem.from_data(
         data, r=cfg.relaxation_rank, dtype=dtype, device=device
     )
-    eng = RBCDEngine(prob, cfg)
+    eng = RBCDEngine(prob, cfg)  # the init pipeline of every mode
     st = eng.initialize()
     initial_cost = float(st.cost)
+    solve = _solve_async(a, eng) if is_async else _solve_rbcd(a, eng)
     t1 = _clock(device)
-    if a.mode == "fused":
-        # the engine's resolved config carries the GNC iteration budget
-        record = bool(a.log_directory)
-        out = eng.make_fused_run(eng.config.max_iteration_number,
-                                 record=record, return_stats=True)(st)
-        st, tcg = out[0], out[-1]
-        info = {"iterations": st.iteration, "final_cost": float(st.cost),
-                "tcg_iterations": tcg}
-        if eng.config.robust_cost_type != RobustCostType.L2:
-            info.update(eng.gnc_info(st.weights))
-        rows, events = None, []
-        if record:
-            rows = out[1][:st.iteration].cpu().numpy()
-            events = [(int(i), "UPDATE_WEIGHT") for i in np.flatnonzero(out[2].numpy())]
-    else:
-        st, info = eng.run(st)
-        h = info["history"]
-        rows = np.stack(h["rel_change_robots"]) if h["rel_change_robots"] else None
-        iter_times, events = h["iter_time_sec"], h["event"]
+    out = solve(st)
     t2 = _clock(device)
-    if rows is not None and a.mode == "fused":
-        # one launch per stretch, no per-iteration host clock: the mean
-        iter_times = np.full(len(rows), (t2 - t1) / max(len(rows), 1))
-    T, st = eng.finalize(st)
-    summary = {
-        "mode": a.mode,
-        "device": a.device,
-        "iterations": info["iterations"],
-        "final_cost": info["final_cost"],
-    }
-    if "gnc_stats" in info:
-        summary["gnc_stats"] = info["gnc_stats"]
-    weights = st.weights.cpu().numpy()
+    # the async summary has JAX's keys only: its ATE goes to the extras
+    scored = out.extras if is_async else out.summary
     if gt is not None:
-        summary["ate_vs_ground_truth"] = float(rounding.ate_translation(
-            torch.as_tensor(T, dtype=torch.float64, device=device),
+        scored["ate_vs_ground_truth"] = float(rounding.ate_translation(
+            torch.as_tensor(out.T, dtype=torch.float64, device=device),
             torch.as_tensor(gt, dtype=torch.float64, device=device),
         ))
     if planted is not None and planted.any():
-        rej = weights[: len(planted)] < 0.5
+        rej = out.weights[: len(planted)] < 0.5
         loops = np.asarray(data.measurements.edge_type) != 0
-        summary["outlier_ground_truth"] = {
+        scored["outlier_ground_truth"] = {
             "planted": int(planted.sum()),
             "rejected_true": int((rej & planted).sum()),
             "rejected_false": int((rej & loops & ~planted).sum()),
             "missed": int((~rej & planted).sum()),
         }
     t3 = _clock(device)
-    summary["wall_time_sec"] = round(t3 - t0, 3)
+    out.summary["wall_time_sec"] = round(t3 - t0, 3)
     if a.output:
         export.export_solution(
-            a.output, T, data.num_poses, data.measurements,
-            weights[: len(data.measurements)], show_loops=False,
+            a.output, out.T, data.num_poses, data.measurements,
+            out.weights[: len(data.measurements)], show_loops=False,
         )
         print(f"wrote {a.output}_global.g2o and per-robot TUM files",
               file=sys.stderr)
+    rows = out.rows
     if a.log_directory and rows is not None and len(rows):
-        from dpgo_ros_tpu.utils import telemetry
+        from dpgo_ros_tpu_torch.utils import telemetry
 
+        iter_times = out.iter_times
+        if iter_times is None:  # no per-iteration host clock: the mean
+            iter_times = np.full(len(rows), (t2 - t1) / len(rows))
         telemetry.write_run_logs(
             a.log_directory, problem=prob, rel_change_rows=rows,
-            iter_times=iter_times, events=events,
+            iter_times=iter_times, events=out.events,
         )
         print(f"per-agent telemetry CSVs in {a.log_directory}", file=sys.stderr)
     t4 = time.time()
     timing = {"init": t1 - t0, "solve": t2 - t1, "rounding": t3 - t2,
-              "export": t4 - t3, "tcg_iterations": info["tcg_iterations"]}
+              "export": t4 - t3, out.work[0]: out.work[1]}
     print("timing_sec " + json.dumps(timing), file=sys.stderr)
-    return summary, {
-        "timing_sec": timing,
-        "initial_cost": initial_cost,
-        "block_updates": info["iterations"],
-        "weight_rounds": st.weight_update_count,
-        "weights": weights,
-    }
+    return out.summary, dict(out.extras, timing_sec=timing,
+                             initial_cost=initial_cost)
+
+
+def _solve_rbcd(a, eng):
+    """The synchronous modes' solve from the initial state: ``--mode
+    fused`` (one K2 launch per GNC stretch) or the engine loop, then the
+    TERMINATE finalize and rounding."""
+    from dpgo_ros_tpu_torch.utils.config import RobustCostType
+
+    def solve(st) -> _Solved:
+        rows, iter_times, events = None, None, []
+        if a.mode == "fused":
+            # the engine's resolved config carries the GNC iteration budget
+            record = bool(a.log_directory)
+            out = eng.make_fused_run(eng.config.max_iteration_number,
+                                     record=record, return_stats=True)(st)
+            st, tcg = out[0], out[-1]
+            info = {"iterations": st.iteration, "final_cost": float(st.cost),
+                    "tcg_iterations": tcg}
+            if eng.config.robust_cost_type != RobustCostType.L2:
+                info.update(eng.gnc_info(st.weights))
+            if record:
+                rows = out[1][:st.iteration].cpu().numpy()
+                events = [(int(i), "UPDATE_WEIGHT")
+                          for i in np.flatnonzero(out[2].numpy())]
+        else:
+            st, info = eng.run(st)
+            h = info["history"]
+            if h["rel_change_robots"]:
+                rows = np.stack(h["rel_change_robots"])
+            iter_times, events = h["iter_time_sec"], h["event"]
+        T, st = eng.finalize(st)
+        summary = {"mode": a.mode, "device": a.device,
+                   "iterations": info["iterations"],
+                   "final_cost": info["final_cost"]}
+        if "gnc_stats" in info:
+            summary["gnc_stats"] = info["gnc_stats"]
+        weights = st.weights.cpu().numpy()
+        extras = {"block_updates": info["iterations"],
+                  "weight_rounds": st.weight_update_count, "weights": weights}
+        return _Solved(summary, extras, T, weights,
+                       ("tcg_iterations", info["tcg_iterations"]),
+                       rows, iter_times, events)
+
+    return solve
+
+
+def _solve_async(a, eng):
+    """The asynchronous (ASAPP) mode's solve from the initial state: ASAPP
+    ticks up to ``max_iteration_number`` with the per-tick stop at
+    ``asapp_tolerance`` (reference ``runOnceAsynchronous``,
+    ``src/PGOAgentROS.cpp:119-127``; ``launch/asapp_demo.launch``), then
+    rounding. P⁻¹ is built here, in the init phase."""
+    from dpgo_ros_tpu_torch.ops import quadratic, rounding
+    from dpgo_ros_tpu_torch.parallel.asapp import ASAPPEngine
+
+    prob = eng.problem
+    aeng = ASAPPEngine(prob, eng.config)
+
+    def solve(st) -> _Solved:
+        ast, info = aeng.run(
+            st.X, num_ticks=aeng.config.max_iteration_number,
+            tol=aeng.config.asapp_tolerance, record=bool(a.log_directory),
+        )
+        T = rounding.anchor_to_first_pose(rounding.round_solution(ast.X))
+        summary = {
+            "mode": "async",
+            "ticks": info["ticks"],
+            "steps_per_tick": aeng.steps_per_tick,
+            "converged": info["converged"],
+            "final_cost": float(quadratic.cost(ast.X, prob.edges)),
+        }
+        extras = {"ticks": info["ticks"], "costs": info["costs"]}
+        return _Solved(summary, extras, T.cpu().numpy(),
+                       prob.host_edges.weight, ("ticks", info["ticks"]),
+                       info.get("rel_hist"))
+
+    return solve
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,9 @@
-// Device code shared by the two hand-written Hopper kernels of the RTR
-// solver: K1 (rtr_block.cu, one masked block solve per launch) and K2
-// (rtr_run.cu, many solver steps per launch). Both call rtr_solve_block,
-// the masked Riemannian trust-region (RTR + Steihaug tCG) solve of the
-// lifted pose-graph problem, from one 256-thread block.
+// Device code shared by the hand-written Hopper kernels of the solver: K1
+// (rtr_block.cu, one masked block solve per launch), K2 (rtr_run.cu, many
+// solver steps per launch) and K3 (asapp_tick.cu, one asynchronous ASAPP
+// tick per launch). K1 and K2 call rtr_solve_block, the masked Riemannian
+// trust-region (RTR + Steihaug tCG) solve of the lifted pose-graph problem,
+// from one 256-thread block; K2's RGD variant and K3 call rgd_step.
 //
 // It computes what dpgo_ros_tpu/ops/fused_rtr.py::make_edge_alg and
 // make_rtr_solve compute inside the Pallas kernels: cost and Euclidean
@@ -602,6 +603,42 @@ __device__ __forceinline__ SolveOut rtr_solve_block(const Problem& p, const Para
     done = gn <= q.gradnorm_tol;
   }
   return SolveOut{f0, f, gn0, gn, k, ktot};
+}
+
+// One projected-gradient step on the block p.mask, from p.X0 into p.X:
+// X ← Retr(X, −s · m·proj(X, (m·proj(X, ∇f)) P⁻¹)), or without PRECOND
+// X ← Retr(X, −s · m·proj(X, ∇f)). Every pose of p.X is written, unless
+// KEEP_UNMASKED: then poses with mask 0 are skipped, so a caller that steps
+// in place (p.X == p.X0) keeps them exact. Pose-local after the gradient,
+// so in-place use is safe; the gradient starts with a barrier.
+template <int DD, bool PRECOND = true, bool KEEP_UNMASKED = false>
+__device__ __forceinline__ void rgd_step(const Problem& p, float stepsize, float* sh) {
+  egrad_cost<DD>(p, p.X0, p.G, sh);
+  for (int i = threadIdx.x; i < p.n; i += THREADS) {
+    const float m = p.mask[i];
+    if constexpr (KEEP_UNMASKED)
+      if (m == 0.f) continue;
+    Blk<DD> X, g, z;
+    load<DD>(p.X0, i, p.r, X);
+    load<DD>(p.G, i, p.r, g);
+    proj<DD>(X, g, p.r, g);
+#pragma unroll
+    for (int a = 0; a < RMAX; ++a)
+      if (a < p.r)
+#pragma unroll
+        for (int b = 0; b <= DD; ++b) g.v[a][b] *= m;
+    if constexpr (PRECOND)
+      prec_tangent<DD>(p, i, m, X, g, z);
+    else
+      z = g;
+#pragma unroll
+    for (int a = 0; a < RMAX; ++a)
+      if (a < p.r)
+#pragma unroll
+        for (int b = 0; b <= DD; ++b) z.v[a][b] *= -stepsize;
+    retract<DD>(X, z, p.r, g);
+    store<DD>(p.X, i, p.r, g);
+  }
 }
 
 // Floats of workspace one solve needs (10 state vectors, sym(YᵀG), the

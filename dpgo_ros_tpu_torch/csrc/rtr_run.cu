@@ -7,8 +7,9 @@
 // Step `it` solves the block bank[sched[it]]: one masked RTR solve
 // (rtr_solve_block of rtr_common.cuh, the code K1 runs), or, when
 // rgd_stepsize > 0, one preconditioned Riemannian-gradient step and its
-// retraction. Then it copies the unmasked poses back from the step's input
-// (exact, whatever the retraction did to them), reduces each robot's masked
+// retraction (rgd_step of rtr_common.cuh, the step K3 runs). Then it copies
+// the unmasked poses back from the step's input (exact, whatever the
+// retraction did to them), reduces each robot's masked
 // displacement `moved` and `updated` flag, bumps the neighbours' relative
 // change through the robot adjacency, rel = updated ? moved :
 // max(rel, (moved·updated) @ adj), and writes the history row of the
@@ -69,33 +70,6 @@ __device__ __forceinline__ float max_rel(const float* v, int R, float* bcast) {
   const float out = *bcast;
   __syncthreads();  // bcast is reused
   return out;
-}
-
-// One preconditioned projected-gradient step on the block p.mask, from
-// p.X0 into p.X: X ← Retr(X, −s · m·proj(X, (m·proj(X, ∇f)) P⁻¹)).
-template <int DD>
-__device__ __forceinline__ void rgd_step(const Problem& p, float stepsize, float* sh) {
-  egrad_cost<DD>(p, p.X0, p.G, sh);
-  for (int i = threadIdx.x; i < p.n; i += THREADS) {
-    const float m = p.mask[i];
-    Blk<DD> X, g, z;
-    load<DD>(p.X0, i, p.r, X);
-    load<DD>(p.G, i, p.r, g);
-    proj<DD>(X, g, p.r, g);
-#pragma unroll
-    for (int a = 0; a < RMAX; ++a)
-      if (a < p.r)
-#pragma unroll
-        for (int b = 0; b <= DD; ++b) g.v[a][b] *= m;
-    prec_tangent<DD>(p, i, m, X, g, z);
-#pragma unroll
-    for (int a = 0; a < RMAX; ++a)
-      if (a < p.r)
-#pragma unroll
-        for (int b = 0; b <= DD; ++b) z.v[a][b] *= -stepsize;
-    retract<DD>(X, z, p.r, g);
-    store<DD>(p.X, i, p.r, g);
-  }
 }
 
 // Minimum one block per SM: without it ptxas caps the d = 3 instance at 128

@@ -1,6 +1,7 @@
 """Riemannian trust-region block solve (RTR with Steihaug tCG), plain torch.
 
-Port of ``dpgo_ros_tpu/models/local_solvers.py`` (RTR part). Every tangent
+Port of ``dpgo_ros_tpu/models/local_solvers.py`` (RTR, and the RGD knobs
+that the asynchronous mode's step uses). Every tangent
 vector is multiplied by a per-pose ``mask`` (n, 1, 1): mask∘Hess∘mask is
 the block Hessian, so a masked solve on the global state is the local
 (block) trust-region solve of RBCD.
@@ -19,6 +20,16 @@ import torch
 
 from dpgo_ros_tpu_torch.ops import quadratic, stiefel
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet
+
+
+@dataclasses.dataclass(frozen=True)
+class RGDParams:
+    """Riemannian gradient descent knobs (``RGD_stepsize``,
+    ``RGD_use_preconditioner``, reference ``launch/PGOAgent.launch:17-18``)."""
+
+    stepsize: float = 1e-3
+    use_preconditioner: bool = True
+    precond_damping: float = 1e-2
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,7 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dpgo_ros_tpu.types import EdgeType, PoseGraphData
+from dpgo_ros_tpu_torch.types import EdgeType, PoseGraphData
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet, build_pull_index
 
 
@@ -65,8 +65,10 @@ class LiftedProblem:
         r: int = 5,
         *,
         dtype: torch.dtype = torch.float64,
-        device="cpu",
+        device="cuda",
     ) -> "LiftedProblem":
+        """Lift ``data`` to tensors on ``device`` (the card unless the
+        caller names another, e.g. ``device="cpu"`` for the plain paths)."""
         m = data.measurements
         offsets = np.zeros((data.num_robots,), np.int64)
         np.cumsum(data.num_poses[:-1], out=offsets[1:])

@@ -1,5 +1,6 @@
 """The RTR block solve (K1) and the multi-step runner (K2) as hand-written
-CUDA kernels.
+CUDA kernels, and the build of every kernel of the package (K3's wrapper is
+``ops/fused_asapp.py``).
 
 K1 ports ``dpgo_ros_tpu/ops/fused_rtr.py::rtr_solve_fused`` (the Pallas
 kernel built by ``_make_rtr_kernel``): one masked RTR block solve per
@@ -54,6 +55,7 @@ _PKG = Path(__file__).resolve().parent.parent
 HEADER = _PKG / "csrc" / "rtr_common.cuh"
 SOURCE = _PKG / "csrc" / "rtr_block.cu"  # K1
 RUN_SOURCE = _PKG / "csrc" / "rtr_run.cu"  # K2
+TICK_SOURCE = _PKG / "csrc" / "asapp_tick.cu"  # K3, wrapped in ops/fused_asapp.py
 BUILD_DIR = _PKG.parent / "build" / "dpgo_ros_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -90,7 +92,8 @@ def build_all(sources: Optional[List[Path]] = None) -> List[Tuple[Path, str]]:
     """Compile every kernel source whose library is missing, one nvcc per
     source, all started together. Returns (library path, ptxas report) per
     source; raises if any nvcc fails."""
-    sources = list(sources) if sources is not None else [SOURCE, RUN_SOURCE]
+    sources = (list(sources) if sources is not None
+               else [SOURCE, RUN_SOURCE, TICK_SOURCE])
     libs = [_lib_path(src) for src in sources]
     procs = []
     for src, lib in zip(sources, libs):
@@ -131,7 +134,14 @@ def _library(source: Path) -> ctypes.CDLL:
         path, _ = build(source)
         lib = ctypes.CDLL(str(path))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if source == RUN_SOURCE:
+        if source == TICK_SOURCE:
+            lib.dpgo_asapp_tick.argtypes = (
+                [ci] * 9 + [vp] * 13 + [cf] + [vp] * 4
+            )
+            lib.dpgo_asapp_tick.restype = ci
+            lib.dpgo_asapp_tick_workspace_floats.argtypes = [ci] * 5
+            lib.dpgo_asapp_tick_workspace_floats.restype = ctypes.c_longlong
+        elif source == RUN_SOURCE:
             lib.dpgo_rtr_run.argtypes = (
                 [ci] * 8 + [vp] * 20 + [ci] * 6 + [cf] * 3
                 + [ci, ci] + [cf] * 5 + [vp]

@@ -1,1 +1,1 @@
-"""The multi-robot RBCD engine."""
+"""The multi-robot RBCD engine and the asynchronous ASAPP engine."""

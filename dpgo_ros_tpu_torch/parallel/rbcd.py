@@ -34,8 +34,8 @@ from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from dpgo_ros_tpu.types import EdgeType
-from dpgo_ros_tpu.utils.config import (
+from dpgo_ros_tpu_torch.types import EdgeType
+from dpgo_ros_tpu_torch.utils.config import (
     AgentConfig,
     InitMethod,
     RobustCostType,
@@ -111,8 +111,6 @@ class RBCDEngine:
             _not_ported("acceleration")
         if cfg.update_rule == UpdateRule.UNIFORM:
             _not_ported("the Uniform update rule")
-        if cfg.solver != SolverMethod.RTR:
-            _not_ported(f"the {cfg.solver.value} local solver")
         if cfg.relative_change_metric != "block_frobenius":
             _not_ported(f"relative_change_metric={cfg.relative_change_metric}")
         if self.device.type == "cuda":
@@ -145,6 +143,13 @@ class RBCDEngine:
             bounds, dtype=torch.int32, device=self.device
         )
         self.Ylift: Optional[torch.Tensor] = None
+
+    def _require_rtr(self) -> None:
+        """The runners solve blocks with RTR only. An asynchronous config
+        resolves to the RGD solver; such an engine still serves
+        :meth:`initialize` (the ASAPP engine's initial state), as in JAX."""
+        if self.config.solver != SolverMethod.RTR:
+            _not_ported(f"the {self.config.solver.value} block-update solver")
 
     def _t(self, x) -> torch.Tensor:
         return torch.tensor(np.asarray(x), dtype=self.dtype, device=self.device)
@@ -479,6 +484,7 @@ class RBCDEngine:
         per-iteration history, the total tCG iterations and, for robust
         costs, ``gnc_stats``."""
         cfg, prob = self.config, self.problem
+        self._require_rtr()
         if state is None:
             state = self.initialize()
         max_iters = max_iters or cfg.max_iteration_number
@@ -576,6 +582,7 @@ class RBCDEngine:
         total tCG iterations.
         """
         cfg, prob = self.config, self.problem
+        self._require_rtr()
         gnc = cfg.robust_cost_type != RobustCostType.L2
         inner = cfg.robust_opt_inner_iters_per_robot * prob.num_robots
         bank, sched = self.mask_bank_and_schedule(max_iters)

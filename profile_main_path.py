@@ -3,19 +3,21 @@
 
 Run from the repository root on a machine with one CUDA GPU:
 
-    python3 profile_main_path.py [--mode engine|fused] [--top 12]
+    python3 profile_main_path.py [--mode engine|fused|async] [--top 12]
 
 Runs the CLI main path (``--demo dpgo_demo --synthetic sphere
---synthetic_n 2500 --device cuda --mode MODE``) once to build the kernels
+--synthetic_n 2500 --device cuda --mode MODE``; for ``async`` the
+``--demo asapp_demo`` path on the same world) once to build the kernels
 and load the CUDA libraries, then once more under ``torch.profiler``.
 From the profiled run's trace it prints:
 
 * the CLI's wall split (init / solve / rounding / export);
 * device busy time: the union of the intervals of kernel, memcpy and
   memset events on the card;
-* the device time of the block-solve kernel (K1, engine mode) and of the
-  multi-step kernel (K2, fused mode), each with its share of busy time,
-  its launches and its mean per launch;
+* the device time of the block-solve kernel (K1, engine mode), of the
+  multi-step kernel (K2, fused mode) and of the ASAPP tick kernel (K3,
+  async mode), each with its share of busy time, its launches and its mean
+  per launch;
 * the idle share, 1 − busy / wall, where wall is the host time of the
   profiled ``cli.run`` call;
 * the ``--top`` operators by device time.
@@ -39,12 +41,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dpgo_ros_tpu_torch import cli
-from dpgo_ros_tpu_torch.ops import fused_rtr
+from dpgo_ros_tpu_torch.ops import fused_asapp, fused_rtr
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-KERNELS = {"k1": "rtr_block_kernel", "k2": "rtr_run_kernel"}
-ARGV = ["--demo", "dpgo_demo", "--synthetic", "sphere", "--synthetic_n", "2500",
-        "--device", "cuda"]
+KERNELS = {"k1": "rtr_block_kernel", "k2": "rtr_run_kernel", "k3": "asapp_tick_kernel"}
+WORLD = ["--synthetic", "sphere", "--synthetic_n", "2500", "--device", "cuda"]
+
+
+def _launches():
+    return {"k1": fused_rtr.LAUNCHES, "k2": fused_rtr.RUN_LAUNCHES,
+            "k3": fused_asapp.TICK_LAUNCHES}
 
 
 def busy_us(events) -> float:
@@ -60,7 +66,7 @@ def busy_us(events) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mode", choices=["engine", "fused"], default="engine")
+    ap.add_argument("--mode", choices=["engine", "fused", "async"], default="engine")
     ap.add_argument("--top", type=int, default=12)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -71,19 +77,20 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
 
-    argv = ARGV + ["--mode", a.mode]
+    demo = "asapp_demo" if a.mode == "async" else "dpgo_demo"
+    argv = ["--demo", demo] + WORLD + ["--mode", a.mode]
     summary, extras = cli.run(argv)  # build, library loads, allocator warm-up
     print("warm-up run: " + json.dumps(summary), flush=True)
     print("warm-up timing_sec " + json.dumps(extras["timing_sec"]), flush=True)
 
-    fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = 0
+    fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = fused_asapp.TICK_LAUNCHES = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.time()
         summary, extras = cli.run(argv)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
-    launches = {"k1": fused_rtr.LAUNCHES, "k2": fused_rtr.RUN_LAUNCHES}
+    launches = _launches()
     print("profiled run: " + json.dumps(summary), flush=True)
     print("profiled timing_sec " + json.dumps(extras["timing_sec"]), flush=True)
 
@@ -107,9 +114,12 @@ def main(argv=None) -> int:
                     f"{key}_ms_per_launch": ms / max(len(ev), 1),
                     f"{key}_share_of_busy": ms / busy_ms})
     if a.mode == "engine":
-        assert launches["k1"] == extras["block_updates"] > 0 and launches["k2"] == 0
+        want = {"k1": extras["block_updates"], "k2": 0, "k3": 0}
+    elif a.mode == "fused":
+        want = {"k1": 0, "k2": 1, "k3": 0}
     else:
-        assert launches["k2"] == 1 and launches["k1"] == 0, launches
+        want = {"k1": 0, "k2": 0, "k3": summary["ticks"]}
+    assert launches == want and max(want.values()) > 0, (launches, want)
 
     rows = sorted(prof.key_averages(), key=lambda r: -r.device_time_total)
     for r in rows[:a.top]:
@@ -117,12 +127,12 @@ def main(argv=None) -> int:
               f"{r.device_time_total / 1e3:10.3f} ms")
     out.update({
         "idle_share": 1.0 - busy_ms / wall_ms,
-        "iterations": summary["iterations"],
+        "iterations": summary.get("iterations", summary.get("ticks")),
         "final_cost": summary["final_cost"],
     })
-    print(f"device busy {busy_ms:.3f} ms, K1 {out['k1_ms']:.3f} ms "
-          f"({100 * out['k1_share_of_busy']:.1f} %), K2 {out['k2_ms']:.3f} ms "
-          f"({100 * out['k2_share_of_busy']:.1f} %), wall {wall_ms:.1f} ms, "
+    shares = ", ".join(f"{k.upper()} {out[k + '_ms']:.3f} ms "
+                       f"({100 * out[k + '_share_of_busy']:.1f} %)" for k in KERNELS)
+    print(f"device busy {busy_ms:.3f} ms, {shares}, wall {wall_ms:.1f} ms, "
           f"idle share {out['idle_share']:.3f}")
     print(json.dumps(out))
     return 0

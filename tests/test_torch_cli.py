@@ -22,7 +22,7 @@ from dpgo_ros_tpu.utils.config import AgentConfig, InitMethod, UpdateRule
 from dpgo_ros_tpu_torch import cli
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
-import torch_parity  # noqa: F401  (one torch thread per test process)
+from torch_parity import port_config  # (and one torch thread per test process)
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = ["--synthetic", "grid3d", "--synthetic_n", "64", "--num_robots", "2",
@@ -57,12 +57,12 @@ def test_cli_end_to_end_matches_engine(tmp_path, rule, capsys):
     # the same run through the engine API (dpgo_demo preset values, with
     # --num_robots 2 and the selected rule)
     data, _, _ = generate_world("grid3d", grid_shape=(4, 4, 4), num_robots=2, seed=42)
-    prob = LiftedProblem.from_data(data, r=5, dtype=torch.float64)
-    eng = RBCDEngine(prob, AgentConfig(
+    prob = LiftedProblem.from_data(data, r=5, dtype=torch.float64, device="cpu")
+    eng = RBCDEngine(prob, port_config(AgentConfig(
         num_robots=2, update_rule=UpdateRule(rule),
         local_initialization_method=InitMethod.CHORDAL,
         relative_change_tolerance=0.2, RTR_gradnorm_tol=0.5, dtype="float64",
-    ))
+    )))
     st0 = eng.initialize()
     st, info = eng.run(st0)
     assert summary["iterations"] == info["iterations"]
@@ -196,7 +196,7 @@ def test_gnc_demo_without_synthetic_loads_tunnels():
     p = cli.build_parser()
     a = p.parse_args(["--demo", "dpgo_gnc_demo", "--device", "cpu"])
     cli.apply_demo(a, p)
-    from dpgo_ros_tpu.io.datasets import tunnels_paths
+    from dpgo_ros_tpu_torch.io.datasets import tunnels_paths
 
     if all(os.path.exists(q) for q in tunnels_paths(None, 8)):
         data, gt, planted = cli.load_data(a)

@@ -28,7 +28,7 @@ from dpgo_ros_tpu_torch.parallel.rbcd import (
     state_from_numpy,
     state_to_numpy,
 )
-from torch_parity import rel_err, world
+from torch_parity import port_config, rel_err, world
 
 TOL = 1e-7
 STEPS = 10
@@ -47,7 +47,7 @@ def problems():
     data, _ = world("sphere256")
     return (
         JaxProblem.from_data(data, r=5, dtype=jnp.float64),
-        LiftedProblem.from_data(data, r=5, dtype=torch.float64),
+        LiftedProblem.from_data(data, r=5, dtype=torch.float64, device="cpu"),
     )
 
 
@@ -60,7 +60,7 @@ def test_initialize_matches_jax(problems, init):
     jp, tp = problems
     je = JaxEngine(jp, _cfg(init=init))
     js = je.initialize()
-    te = RBCDEngine(tp, _cfg(init=init))
+    te = RBCDEngine(tp, port_config(_cfg(init=init)))
     ts = te.initialize(ylift=np.asarray(je.Ylift))
     assert rel_err(ts.X.numpy(), js.X) < TOL
     assert float(ts.cost) == pytest.approx(float(js.cost), rel=TOL)
@@ -73,7 +73,7 @@ def test_steps_and_finalize_match_jax(problems, rule):
     jp, tp = problems
     je = JaxEngine(jp, _cfg(rule))
     js, jinfo = je.run(je.initialize())
-    te = RBCDEngine(tp, _cfg(rule))
+    te = RBCDEngine(tp, port_config(_cfg(rule)))
     ts, tinfo = te.run(te.initialize(ylift=np.asarray(je.Ylift)))
     assert tinfo["iterations"] == jinfo["iterations"] == STEPS
     jh, th = jinfo["history"], tinfo["history"]
@@ -92,7 +92,7 @@ def test_state_carried_from_jax(problems):
     jp, tp = problems
     je = JaxEngine(jp, _cfg())
     js, _ = je.run(je.initialize(), max_iters=4)
-    te = RBCDEngine(tp, _cfg())
+    te = RBCDEngine(tp, port_config(_cfg()))
     ts = state_from_numpy(_jax_state_np(js), dtype=torch.float64, device="cpu")
     assert ts.iteration == 4
     js2, jinfo = je.run(js, max_iters=3)
@@ -121,7 +121,7 @@ def test_every_block_update_goes_through_rtr_solve_fused(
 
     monkeypatch.setattr(fused_rtr, "rtr_solve_fused", counting)
     launches = fused_rtr.LAUNCHES
-    eng = RBCDEngine(tp, _cfg(use_fused_kernel=use_fused_kernel))
+    eng = RBCDEngine(tp, port_config(_cfg(use_fused_kernel=use_fused_kernel)))
     _, info = eng.run(eng.initialize(ylift=np.eye(5, 3)), max_iters=4)
     assert info["iterations"] == 4
     assert calls == ["cpu"] * 4
@@ -130,19 +130,39 @@ def test_every_block_update_goes_through_rtr_solve_fused(
 
 @pytest.mark.parametrize("what", ["acceleration", "gnc", "uniform"])
 def test_unported_features_raise(problems, what):
-    """Acceleration and the Uniform rule are not ported; GNC is, but not
-    under the asynchronous mode's RGD local solver."""
+    """Acceleration and the Uniform rule are not ported (the engine refuses
+    them at construction); GNC is, but the runners do not solve blocks with
+    the asynchronous mode's RGD solver — an async engine is built (its
+    ``initialize`` serves the ASAPP engine, as in JAX) and its runners
+    refuse."""
     _, tp = problems
     kw = {
         "acceleration": dict(acceleration=True),
         "gnc": dict(robust_cost_type=RobustCostType.GNC_TLS, asynchronous=True),
         "uniform": dict(rule=UpdateRule.UNIFORM),
     }[what]
+    if what != "gnc":
+        with pytest.raises(NotImplementedError):
+            RBCDEngine(tp, port_config(_cfg(**kw)))
+        return
+    eng = RBCDEngine(tp, port_config(_cfg(**kw)))
     with pytest.raises(NotImplementedError):
-        RBCDEngine(tp, _cfg(**kw))
+        eng.run(max_iters=1)
+    with pytest.raises(NotImplementedError):
+        eng.make_fused_run(4)
+
+
+def test_async_config_initializes(problems):
+    """Under an asynchronous config (solver resolves to RGD) the engine
+    builds and ``initialize`` gives the same state as under RTR."""
+    _, tp = problems
+    X_async = RBCDEngine(tp, port_config(_cfg(asynchronous=True))).initialize(
+        ylift=np.eye(5, 3)).X
+    X_sync = RBCDEngine(tp, port_config(_cfg())).initialize(ylift=np.eye(5, 3)).X
+    assert torch.equal(X_async, X_sync)
 
 
 def test_config_dtype_must_match_problem(problems):
     _, tp = problems
     with pytest.raises(ValueError):
-        RBCDEngine(tp, dataclasses.replace(_cfg(), dtype="float32"))
+        RBCDEngine(tp, port_config(dataclasses.replace(_cfg(), dtype="float32")))

@@ -44,7 +44,7 @@ def _offsets(prob):
 def test_fused_cpu_matches_pallas_interpret(name, which):
     data, gt = world(name)
     jp = JaxProblem.from_data(data, r=5, dtype=jnp.float32)
-    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32)
+    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cpu")
     X = noisy_lifted_gt(gt, 5, seed=11).astype(np.float32)
     mask = _masks(jp, which).astype(np.float32)
     e = jp.edges
@@ -90,7 +90,7 @@ def test_fused_cpu_matches_pallas_interpret(name, which):
 def test_rtr_solve_matches_jax_fp64(state, params):
     data, gt = world("sphere256")
     jp = JaxProblem.from_data(data, r=5, dtype=jnp.float64)
-    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float64)
+    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float64, device="cpu")
     if state == "near":
         X = noisy_lifted_gt(gt, 5, seed=12)
     else:
@@ -114,7 +114,7 @@ def test_rtr_solve_matches_jax_fp64(state, params):
 
 def test_plain_version_stats_layout():
     data, gt = world("grid3d4")
-    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float64)
+    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float64, device="cpu")
     X = torch.as_tensor(noisy_lifted_gt(gt, 5, seed=14))
     mask = torch.as_tensor(_masks(tp, "robot0"))
     Pinv = quadratic.precond_inverse(quadratic.precond_blocks(tp.edges, tp.n))
@@ -135,7 +135,7 @@ def test_plain_version_stats_layout():
 @pytest.mark.parametrize("bad", ["strided", "rank9", "offsets_dtype", "pinv_shape"])
 def test_wrapper_rejects_operands_the_kernel_cannot_take(bad):
     data, gt = world("grid3d4")
-    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32)
+    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cpu")
     X = torch.as_tensor(noisy_lifted_gt(gt, 5, seed=15), dtype=torch.float32)
     mask = torch.as_tensor(_masks(tp, "robot0"), dtype=torch.float32)
     Pinv = torch.eye(4).expand(tp.n, 4, 4).contiguous()

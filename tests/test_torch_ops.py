@@ -33,7 +33,7 @@ def problems(request):
     data, gt = world(request.param)
     return (
         JaxProblem.from_data(data, r=5, dtype=jnp.float64),
-        LiftedProblem.from_data(data, r=5, dtype=T64),
+        LiftedProblem.from_data(data, r=5, dtype=T64, device="cpu"),
         gt,
     )
 

@@ -34,7 +34,7 @@ from dpgo_ros_tpu_torch.models import robust
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import stiefel
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine, state_to_numpy
-from torch_parity import rel_err
+from torch_parity import port_config, rel_err
 
 TOL = 1e-7
 
@@ -66,7 +66,7 @@ def _pair(case):
                                       rng.standard_normal((3, 1))], 1)
                       for _ in range(60)])
         jp = JaxProblem.from_data(data, r=3, dtype=jnp.float64)
-        tp = LiftedProblem.from_data(data, r=3, dtype=torch.float64)
+        tp = LiftedProblem.from_data(data, r=3, dtype=torch.float64, device="cpu")
         return (robust.measurement_residuals(torch.as_tensor(T), tp.edges),
                 j_robust.measurement_residuals(jnp.asarray(T), jp.edges))
     if case == "gnc_tls":
@@ -156,7 +156,7 @@ def _world():
 def problems():
     data, planted = _world()
     return (JaxProblem.from_data(data, r=5, dtype=jnp.float64),
-            LiftedProblem.from_data(data, r=5, dtype=torch.float64), planted)
+            LiftedProblem.from_data(data, r=5, dtype=torch.float64, device="cpu"), planted)
 
 
 def _cfg(**kw):
@@ -191,7 +191,7 @@ def test_robust_engine_matches_jax_fp64(problems, schedule):
     cfg = _cfg(**kw)
     je = JaxEngine(jp, cfg)
     js, jinfo = je.run(je.initialize(), max_iters=cap)
-    te = RBCDEngine(tp, cfg)
+    te = RBCDEngine(tp, port_config(cfg))
     ts, tinfo = te.run(te.initialize(ylift=np.asarray(je.Ylift)), max_iters=cap)
     assert tinfo["iterations"] == jinfo["iterations"]
     assert tinfo["history"]["event"] == jinfo["history"]["event"]
@@ -216,7 +216,7 @@ def test_irls_engine_matches_jax_fp64(problems, rtype):
     cfg = _cfg(robust_cost_type=rtype, max_iteration_number=14)
     je = JaxEngine(jp, cfg)
     js, jinfo = je.run(je.initialize())
-    te = RBCDEngine(tp, cfg)
+    te = RBCDEngine(tp, port_config(cfg))
     ts, tinfo = te.run(te.initialize(ylift=np.asarray(je.Ylift)))
     assert tinfo["history"]["event"] == jinfo["history"]["event"]
     assert np.max(np.abs(ts.weights.numpy() - np.asarray(js.weights))) < TOL
@@ -233,15 +233,15 @@ def test_gnc_tls_local_init_matches_jax_fp64():
                       GNC_use_probability=False, GNC_barc=3.0, dtype="float64")
     je = JaxEngine(JaxProblem.from_data(data, r=5, dtype=jnp.float64), cfg)
     js = je.initialize()
-    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float64)
-    te = RBCDEngine(tp, cfg)
+    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float64, device="cpu")
+    te = RBCDEngine(tp, port_config(cfg))
     ts = te.initialize(ylift=np.asarray(je.Ylift))
     assert rel_err(ts.X.numpy(), np.asarray(js.X)) < 1e-8
-    chordal = RBCDEngine(tp, AgentConfig(
+    chordal = RBCDEngine(tp, port_config(AgentConfig(
         num_robots=1, update_rule=UpdateRule.ROUND_ROBIN,
         local_initialization_method=InitMethod.CHORDAL,
         robust_cost_type=RobustCostType.GNC_TLS, dtype="float64",
-    )).initialize(ylift=np.asarray(je.Ylift))
+    ))).initialize(ylift=np.asarray(je.Ylift))
     assert rel_err(ts.X.numpy(), chordal.X.numpy()) > 1e-3  # truncation acted
 
 
@@ -251,13 +251,13 @@ def test_initial_state_matches_jax_with_free_loop_closures(problems):
     jp, tp, _ = problems
     je = JaxEngine(jp, _cfg())
     js = je.initialize()
-    ts = RBCDEngine(tp, _cfg()).initialize(ylift=np.asarray(je.Ylift))
+    ts = RBCDEngine(tp, port_config(_cfg())).initialize(ylift=np.asarray(je.Ylift))
     back = state_to_numpy(ts)
     for k, v in js._asdict().items():
         assert rel_err(back[k], np.asarray(v)) < TOL, k
     np.testing.assert_array_equal(back["fixed_mask"], 1.0 - tp.host_edges.is_loop)
     assert back["fixed_mask"].min() == 0.0
-    l2 = RBCDEngine(tp, _cfg(robust_cost_type=RobustCostType.L2)).initialize()
+    l2 = RBCDEngine(tp, port_config(_cfg(robust_cost_type=RobustCostType.L2))).initialize()
     assert (l2.fixed_mask.numpy() == 1.0).all()
 
 
@@ -265,7 +265,7 @@ def test_reset_reinitializes_with_current_ylift(problems):
     """Repair: a GNC reset lifts the fresh initial trajectory through the
     engine's current YLift (here one carried in, not the seed's)."""
     _, tp, _ = problems
-    eng = RBCDEngine(tp, _cfg(robust_opt_num_resets=1))
+    eng = RBCDEngine(tp, port_config(_cfg(robust_opt_num_resets=1)))
     Y = stiefel.random_lifting_matrix(torch.Generator().manual_seed(7), 5, 3,
                                       dtype=torch.float64)
     st0 = eng.initialize(ylift=Y)
@@ -290,7 +290,7 @@ def test_fused_runner_matches_engine_run(problems, rule, cost):
     if cost == "L2":
         kw.update(robust_cost_type=RobustCostType.L2, max_iteration_number=40)
     cfg = _cfg(**kw)
-    eng = RBCDEngine(tp, cfg)
+    eng = RBCDEngine(tp, port_config(cfg))
     st0 = eng.initialize()
     st_r, info = eng.run(st0)
     st_f, rel_h, ev_h, tcg = eng.make_fused_run(

@@ -36,7 +36,7 @@ from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import fused_rtr
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
-from torch_parity import noisy_lifted_gt, rel_err, world
+from torch_parity import noisy_lifted_gt, port_config, rel_err, world
 
 DEMO = dict(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
 RELW = 128  # the JAX kernel's lane-padded rel row
@@ -91,9 +91,9 @@ def test_run_cpu_matches_pallas_interpret(name, case):
     o.update(opts)
     data, gt = world(name)
     jp = JaxProblem.from_data(data, r=5, dtype=jnp.float32)
-    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32)
-    eng = RBCDEngine(tp, AgentConfig(num_robots=tp.num_robots, update_rule=rule,
-                                     dtype="float32"))
+    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cpu")
+    eng = RBCDEngine(tp, port_config(AgentConfig(
+        num_robots=tp.num_robots, update_rule=rule, dtype="float32")))
     bank, sched = eng.mask_bank_and_schedule(it_cap)
     R = tp.num_robots
     X = noisy_lifted_gt(gt, 5, seed=21).astype(np.float32)
@@ -129,11 +129,11 @@ def test_run_cpu_matches_pallas_interpret(name, case):
 def test_mask_bank_matches_jax():
     data, _ = world("sphere256")
     jp = JaxProblem.from_data(data, r=5, dtype=jnp.float32)
-    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32)
+    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cpu")
     for rule, attr in [(UpdateRule.ROUND_ROBIN, "_masks_np"),
                        (UpdateRule.PARALLEL, "_color_masks_np")]:
         cfg = AgentConfig(num_robots=3, update_rule=rule, dtype="float32")
-        bank, sched = RBCDEngine(tp, cfg).mask_bank_and_schedule(7)
+        bank, sched = RBCDEngine(tp, port_config(cfg)).mask_bank_and_schedule(7)
         jbank = getattr(JaxEngine(jp, cfg), attr)[:, :, 0, 0]
         np.testing.assert_array_equal(bank.numpy(), jbank)
         assert sched.dtype == torch.int32
@@ -166,8 +166,8 @@ def test_make_fused_run_matches_jax_fused_runner():
     je = JaxEngine(jp, cfg)
     assert je._use_fused and je.config.max_iteration_number == 10
     js, jrel, jev = je.make_fused_run(10, record=True)(je.initialize())
-    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32)
-    te = RBCDEngine(tp, cfg)
+    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cpu")
+    te = RBCDEngine(tp, port_config(cfg))
     launches = fused_rtr.RUN_LAUNCHES
     ts, trel, tev, tcg = te.make_fused_run(10, record=True, return_stats=True)(
         te.initialize(ylift=np.asarray(je.Ylift))
@@ -186,9 +186,9 @@ def test_make_fused_run_matches_jax_fused_runner():
 
 def _operands(bad=None):
     data, gt = world("grid3d4")
-    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32)
-    eng = RBCDEngine(tp, AgentConfig(num_robots=2, update_rule=UpdateRule.ROUND_ROBIN,
-                                     dtype="float32"))
+    tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cpu")
+    eng = RBCDEngine(tp, port_config(AgentConfig(
+        num_robots=2, update_rule=UpdateRule.ROUND_ROBIN, dtype="float32")))
     bank, sched = eng.mask_bank_and_schedule(4)
     X = torch.as_tensor(noisy_lifted_gt(gt, 5, seed=22), dtype=torch.float32)
     kw = dict(adj=eng._adjf, rel0=torch.full((2,), float("inf")), it0=0,
@@ -254,8 +254,8 @@ def test_run_kernel_matches_plain_version_on_card():
         pytest.skip("needs a CUDA device (on the card: python3 chip_smoke.py)")
     data, gt = world("sphere256")
     tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cuda")
-    eng = RBCDEngine(tp, AgentConfig(num_robots=3, update_rule=UpdateRule.ROUND_ROBIN,
-                                     dtype="float32"))
+    eng = RBCDEngine(tp, port_config(AgentConfig(
+        num_robots=3, update_rule=UpdateRule.ROUND_ROBIN, dtype="float32")))
     bank, sched = eng.mask_bank_and_schedule(6)
     X = torch.as_tensor(noisy_lifted_gt(gt, 5, seed=23), dtype=torch.float32,
                         device="cuda")

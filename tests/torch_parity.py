@@ -6,10 +6,14 @@ the JAX reference and the port compute on identical data.
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+
 import numpy as np
 import torch
 
-from dpgo_ros_tpu.io.synthetic import generate_world
+from dpgo_ros_tpu_torch.io.synthetic import generate_world
+from dpgo_ros_tpu_torch.utils import config as t_config
 
 # The port's CPU paths run many small ops; under the test runner's parallel
 # workers one intra-op thread per process is faster than oversubscribing
@@ -26,6 +30,23 @@ def world(name: str):
     """(data, ground truth (n, 3, 4)) of a named small synthetic world."""
     data, gt, _ = generate_world(**WORLDS[name])
     return data, gt
+
+
+def port_config(cfg) -> t_config.AgentConfig:
+    """The port's ``AgentConfig`` with the fields of ``cfg``, a JAX-package
+    ``AgentConfig`` that a test also hands to the JAX engine; enum members
+    are mapped by value."""
+    kinds = {"update_rule": t_config.UpdateRule,
+             "local_initialization_method": t_config.InitMethod,
+             "robust_cost_type": t_config.RobustCostType,
+             "solver": t_config.SolverMethod}
+    out = {}
+    for f in dataclasses.fields(t_config.AgentConfig):
+        v = getattr(cfg, f.name)
+        if f.name in kinds and v is not None:
+            v = kinds[f.name](v.value if isinstance(v, enum.Enum) else v)
+        out[f.name] = v
+    return t_config.AgentConfig(**out)
 
 
 def rel_err(a, b) -> float:
