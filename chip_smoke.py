@@ -7,9 +7,9 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero; nothing is caught):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the three kernels, K1 (csrc/rtr_block.cu), K2 (csrc/rtr_run.cu)
-     and K3 (csrc/asapp_tick.cu), one nvcc per source started together;
-     print ptxas's report;
+  2. build the four kernels, K1 (csrc/rtr_block.cu), K2 (csrc/rtr_run.cu),
+     K3 (csrc/asapp_tick.cu) and K4 (csrc/rtr_window.cu), one nvcc per
+     source started together; print ptxas's report;
   3. hold K1 against its plain PyTorch version on the card, on the
      2,500-pose 5-robot synthetic sphere (every robot mask and every
      Parallel colour union), on a 1,000-pose grid3d world (irregular loop
@@ -23,9 +23,11 @@ Phases (any failure exits nonzero; nothing is caught):
   6. drive the CLI main path (``--demo dpgo_demo --synthetic sphere
      --synthetic_n 2500 --device cuda``) in engine mode to its rel-change
      tolerance with the launch counters zeroed just before, and check cost
-     decrease, K1 launches == block updates, export files and a finite ATE;
-     then run 20 fixed iterations on the card (K1, fp32) and on the CPU
-     (plain path, fp64) from one initial state and compare the histories;
+     decrease, K4 launches == block updates (RoundRobin), export files and
+     a finite ATE; the same with ``--update_rule Parallel``, K1 launches ==
+     block updates; then run 20 fixed RoundRobin iterations on the card
+     (K4, fp32) and on the CPU (plain path, fp64) from one initial state and
+     compare the histories;
   7. drive the same main path with ``--mode fused``: one K2 launch, no K1
      launch, the engine run's iterations and cost;
   8. drive the async main path (``--demo asapp_demo --synthetic sphere
@@ -36,12 +38,30 @@ Phases (any failure exits nonzero; nothing is caught):
   9. drive the GNC demo at full width (``--demo dpgo_gnc_demo --synthetic
      sphere --synthetic_n 2500 --synthetic_outlier_ratio 0.1``: 8 robots,
      245 planted outliers) in both modes: 3 weight rounds, K2 launches ==
-     rounds + 1 (fused), K1 launches == block updates (engine), the modes'
+     rounds + 1 (fused), K4 launches == block updates (engine), the modes'
      accept/reject sets agree, outlier recall no worse than the JAX CLI's;
- 10. time K1 per solve, K2 per step and K3 per launch against their plain
+ 10. hold K4, the windowed block solve, against its plain version and
+     against K1 full-width under the robot's mask on the 50,000-pose
+     16-robot sphere from a noisy state, robots 0, 5, 10 and 15, banded and
+     with 1,000 extra loop closures between random pose pairs: the same TR
+     and tCG counts, X, f − f0 and gn within tolerance, every pose outside
+     the block bit-identical to the input;
+ 11. drive the large-world main path (``--synthetic sphere --synthetic_n
+     50000 --num_robots 16``, Odometry init, RoundRobin, at most 10
+     sweeps) in engine mode with the counters zeroed just before: K4
+     launches == block updates, no K1 launch, cost decrease, export files
+     and a finite ATE; then one sweep of 16 updates from one state through
+     K4 and through K1 full-width (``rbcd.SEQUENTIAL_ON_WINDOWS`` off),
+     cost and rel-change histories compared;
+ 12. time K1 per solve, K2 per step and K3 per launch against their plain
      versions at these shapes (K3 also per whole tick, the ring write
-     included), and the dpgo_demo solve phase of both modes and the
-     asapp_demo solve phase.
+     included), the dpgo_demo solve phase of both modes and the asapp_demo
+     solve phase; K4 per solve over the 16 blocks of the 50,000-pose world,
+     K1 full-width on 4 of them and the plain version, and the large-world
+     solve phase;
+ 13. time K4 against K1 full-width per block solve below the large world:
+     the dpgo_demo world, and worlds whose window is the whole world (1
+     robot) or most of it (the measurement behind ``SEQUENTIAL_ON_WINDOWS``).
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
@@ -50,8 +70,10 @@ and plain version, the bound — the larger of the bytes the call must move
 over the card's memory rate and its operations over the fp32 rate, counted
 over the poses and edges each block solve or robot step needs, with which
 of the two bounds it — and the library call's time, null: no single
-PyTorch call computes these functions; K3 also its whole tick's ms), and
-the line before that the card's name and power limit.
+PyTorch call computes these functions; K3 also its whole tick's ms, K4
+also K1's full-width ms on the same blocks and phase 13's pairs), and the
+line before that the card's name and power limit. K1's launches are the
+Parallel main path's, K4's the large world's.
 """
 
 from __future__ import annotations
@@ -63,17 +85,19 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
-from dpgo_ros_tpu_torch.io.synthetic import generate_world
+from dpgo_ros_tpu_torch.io.synthetic import add_random_loop_closures, generate_world
 from dpgo_ros_tpu_torch.types import EdgeType, MeasurementBatch, PoseGraphData
 from dpgo_ros_tpu_torch.utils.config import AgentConfig, InitMethod, UpdateRule
 from dpgo_ros_tpu_torch import cli
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_asapp, fused_rtr, quadratic, stiefel
+from dpgo_ros_tpu_torch.ops import fused_asapp, fused_rtr, hbm_rtr, quadratic, stiefel
+from dpgo_ros_tpu_torch.parallel import rbcd
 from dpgo_ros_tpu_torch.parallel.asapp import ASAPPEngine
 from dpgo_ros_tpu_torch.parallel.rbcd import (
     RBCDEngine,
@@ -113,7 +137,7 @@ def card_line() -> str:
 
 
 def phase_build() -> None:
-    """Both kernels' libraries, one nvcc per source started together; the
+    """Every kernel's library, one nvcc per source started together; the
     ptxas register, stack and spill report of each."""
     t = time.time()
     built = fused_rtr.build_all()
@@ -297,27 +321,31 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(np.max(np.abs(a[fin] - b[fin])) / max(np.max(np.abs(b[fin])), 1e-30))
 
 
-def phase_main_path(tmp: str):
-    """The CLI main path on the card, counting kernel launches."""
-    prefix = os.path.join(tmp, "demo")
-    summary, extras, launches, run_launches = _counted_run(
-        DPGO_DEMO + ["--output", prefix]
+def phase_main_path(tmp: str, rule: str):
+    """The CLI main path on the card under ``rule``, counting kernel
+    launches: one K4 launch per RoundRobin block update, one K1 launch per
+    Parallel one. Returns (launches, summary)."""
+    prefix = os.path.join(tmp, f"demo-{rule}")
+    summary, extras, counts = _counted_run(
+        DPGO_DEMO + ["--update_rule", rule, "--output", prefix]
     )
-    print("main path: " + json.dumps(summary), flush=True)
-    print("main path timing_sec " + json.dumps(extras["timing_sec"]))
-    print(f"main path: launches {launches} block updates "
+    print(f"main path {rule}: " + json.dumps(summary), flush=True)
+    print(f"main path {rule} timing_sec " + json.dumps(extras["timing_sec"]))
+    print(f"main path {rule}: launches {counts} block updates "
           f"{extras['block_updates']} initial cost {extras['initial_cost']:.7g}")
-    assert launches == extras["block_updates"] > 0 and run_launches == 0
+    kernel = "k1" if rule == "Parallel" else "k4"
+    assert extras["block_updates"] > 0
+    _only(counts, **{kernel: extras["block_updates"]})
     assert summary["final_cost"] < extras["initial_cost"]
     assert math.isfinite(summary["ate_vs_ground_truth"])
     for suffix in ["_global.g2o", ".html"] + [f"_robot{k}.tum" for k in range(5)]:
         assert os.path.getsize(prefix + suffix) > 0, suffix
-    return launches, summary
+    return counts[kernel], summary
 
 
 def phase_fixed_iterations() -> None:
     """20 RoundRobin iterations (tol 0) from one initial state: card fp32
-    kernel vs CPU fp64 plain path."""
+    (K4) vs CPU fp64 plain path."""
     data, _, _ = generate_world("sphere", n=2500, num_robots=5, seed=42)
     base = dict(num_robots=5, update_rule=UpdateRule.ROUND_ROBIN,
                 local_initialization_method=InitMethod.CHORDAL,
@@ -363,13 +391,15 @@ def block_work(prob: LiftedProblem, mask: np.ndarray):
     return int(mask.sum()), int(touch.sum()), np.unique(ends[~mask[ends]]).size
 
 
-def solve_bytes(prob: LiftedProblem, nk: int, Ek: int, ns: int) -> int:
+def solve_bytes(prob: LiftedProblem, nk: int, Ek: int, ns: int,
+                stats: int = 0) -> int:
     """One block solve's operands read once and outputs written once: the
     block's poses and their P⁻¹, the separator poses, the block's edges;
-    the block's poses and the stats row."""
+    the block's poses and the stats row (K1's 6 + 2R floats unless
+    ``stats`` says otherwise)."""
     C, D = prob.r * (prob.d + 1), prob.d + 1
-    return 4 * (2 * nk * C + ns * C + nk * D * D + 6 + 2 * prob.num_robots) + \
-        edge_bytes(Ek, prob.d)
+    stats = stats or 6 + 2 * prob.num_robots
+    return 4 * (2 * nk * C + ns * C + nk * D * D + stats) + edge_bytes(Ek, prob.d)
 
 
 # Operation counts from the kernels' algebra (a multiply-add is 2): one
@@ -489,25 +519,33 @@ TOL_MODES_COST, MIN_MODE_AGREEMENT = 1e-4, 0.99
 
 def _counted_run(argv):
     """cli.run with every launch counter zeroed just before; returns
-    (summary, extras, K1 launches, K2 launches); K3's count stays in
-    ``fused_asapp.TICK_LAUNCHES``."""
+    (summary, extras, {"k1": .., "k2": .., "k3": .., "k4": ..}), each
+    kernel's launches in the run."""
     fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = fused_asapp.TICK_LAUNCHES = 0
+    hbm_rtr.LAUNCHES = 0
     summary, extras = cli.run(argv)
-    return summary, extras, fused_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES
+    return summary, extras, {"k1": fused_rtr.LAUNCHES, "k2": fused_rtr.RUN_LAUNCHES,
+                             "k3": fused_asapp.TICK_LAUNCHES, "k4": hbm_rtr.LAUNCHES}
+
+
+def _only(counts, **want):
+    """Every kernel not named in ``want`` made no launch, the named ones
+    made the launches given."""
+    assert counts == dict(dict.fromkeys(counts, 0), **want), (counts, want)
 
 
 def phase_fused_main_path(engine_summary):
     """--mode fused on the dpgo_demo main path: one K2 launch, no K1."""
-    summary, extras, k1, k2 = _counted_run(DPGO_DEMO + ["--mode", "fused"])
+    summary, extras, counts = _counted_run(DPGO_DEMO + ["--mode", "fused"])
     print("fused main path: " + json.dumps(summary), flush=True)
     print("fused main path timing_sec " + json.dumps(extras["timing_sec"]))
-    print(f"fused main path: K2 launches {k2}, K1 launches {k1}")
-    assert k2 == 1 and k1 == 0, (k2, k1)
+    print(f"fused main path: launches {counts}")
+    _only(counts, k2=1)
     assert abs(summary["iterations"] - engine_summary["iterations"]) <= 1
     assert abs(summary["final_cost"] - engine_summary["final_cost"]) <= (
         TOL_MODES_COST * abs(engine_summary["final_cost"]))
     assert math.isfinite(summary["ate_vs_ground_truth"])
-    return k2
+    return counts["k2"]
 
 
 def phase_gnc():
@@ -515,19 +553,19 @@ def phase_gnc():
     runs = {}
     for mode in ("engine", "fused"):
         t = time.time()
-        summary, extras, k1, k2 = _counted_run(GNC_DEMO + ["--mode", mode])
+        summary, extras, counts = _counted_run(GNC_DEMO + ["--mode", mode])
         runs[mode] = (summary, extras)
         og = summary["outlier_ground_truth"]
         print(f"gnc {mode}: " + json.dumps(summary), flush=True)
         print(f"gnc {mode} timing_sec " + json.dumps(extras["timing_sec"]))
-        print(f"gnc {mode}: weight rounds {extras['weight_rounds']}, K1 launches "
-              f"{k1}, K2 launches {k2}, block updates {extras['block_updates']}, "
+        print(f"gnc {mode}: weight rounds {extras['weight_rounds']}, launches "
+              f"{counts}, block updates {extras['block_updates']}, "
               f"{time.time() - t:.1f} s", flush=True)
         assert extras["weight_rounds"] == 3
         if mode == "fused":
-            assert k2 == extras["weight_rounds"] + 1 and k1 == 0, (k2, k1)
+            _only(counts, k2=extras["weight_rounds"] + 1)
         else:
-            assert k1 == extras["block_updates"] and k2 == 0, (k1, k2)
+            _only(counts, k4=extras["block_updates"])
         assert og["planted"] == GNC_PLANTED
         assert og["rejected_true"] / og["planted"] >= JAX_GNC_RECALL - 0.02, og
         assert math.isfinite(summary["ate_vs_ground_truth"])
@@ -579,7 +617,7 @@ def phase_timing_modes():
     then fused, all warm."""
     out = {"engine": [], "fused": []}
     for mode in ("engine", "fused", "engine", "fused"):
-        _, extras, _, _ = _counted_run(DPGO_DEMO + ["--mode", mode])
+        _, extras, _ = _counted_run(DPGO_DEMO + ["--mode", mode])
         out[mode].append(extras["timing_sec"]["solve"])
     print("dpgo_demo solve seconds (warm, engine / fused): "
           + json.dumps(out))
@@ -669,14 +707,15 @@ def phase_compare_tick() -> float:
 
 def phase_async_main_path():
     """The async main path on the card, counting K3 launches."""
-    summary, extras, k1, k2 = _counted_run(ASAPP_DEMO)
-    launches = fused_asapp.TICK_LAUNCHES
+    summary, extras, counts = _counted_run(ASAPP_DEMO)
+    launches = counts["k3"]
     print("async main path: " + json.dumps(summary), flush=True)
     print("async main path timing_sec " + json.dumps(extras["timing_sec"]))
-    print(f"async main path: K3 launches {launches}, ticks {summary['ticks']}, "
-          f"K1/K2 launches {k1}/{k2}, initial cost {extras['initial_cost']:.7g}, "
+    print(f"async main path: launches {counts}, ticks {summary['ticks']}, "
+          f"initial cost {extras['initial_cost']:.7g}, "
           f"ATE {extras['ate_vs_ground_truth']:.6g}, JAX CLI cost {JAX_ASAPP_COST}")
-    assert launches == summary["ticks"] > 0 and k1 == k2 == 0
+    assert summary["ticks"] > 0
+    _only(counts, k3=summary["ticks"])
     assert summary["final_cost"] < extras["initial_cost"]
     assert summary["final_cost"] <= (1 + TOL_ASAPP_COST) * JAX_ASAPP_COST
     assert math.isfinite(extras["ate_vs_ground_truth"])
@@ -748,12 +787,230 @@ def phase_timing_async():
     """Solve seconds of the asapp_demo path, twice, warm."""
     out = []
     for _ in range(2):
-        _, extras, _, _ = _counted_run(ASAPP_DEMO)
+        _, extras, _ = _counted_run(ASAPP_DEMO)
         t = extras["timing_sec"]
         out.append(t["solve"])
         print(f"asapp_demo solve {t['solve']:.4f} s over {t['ticks']} ticks "
               f"({1e3 * t['solve'] / t['ticks']:.4f} ms per tick), init "
               f"{t['init']:.3f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- K4
+
+# the large world: the largest row of the JAX package's large-world record
+# (scripts/bench_scale_hbm.py), 50,000 poses, 99,775 edges, 16 robots
+LARGE_N, LARGE_ROBOTS, LARGE_LOOPS = 50000, 16, 1000
+K4_ROBOTS = (0, 5, 10, 15)
+# K4 vs plain (fp32 on the card; sum orders differ, the TR decisions must
+# not): X within TOL_K4_X of max |X|, f − f0 within rel TOL_K4_DF; K4 vs
+# K1 full-width (window sums against 100k-edge sums): gn and f − f0 within
+# rel TOL_K4_K1, X within TOL_K4_X of max |X|; the two routes' sweep
+# histories within rel TOL_SWEEP
+TOL_K4_X, TOL_K4_DF, TOL_K4_K1, TOL_SWEEP = 1e-4, 1e-4, 1e-3, 1e-3
+# bench_scale_hbm.py's settings, capped at 10 sweeps
+LARGE = ["--synthetic", "sphere", "--synthetic_n", str(LARGE_N), "--num_robots",
+         str(LARGE_ROBOTS), "--local_initialization_method", "Odometry",
+         "--update_rule", "RoundRobin", "--RTR_gradnorm_tol", "0.5",
+         "--relative_change_tolerance", "0.2", "--max_iteration_number",
+         str(10 * LARGE_ROBOTS), "--device", "cuda"]
+_large = {}
+
+
+def large_cases():
+    """(name, prob, X, Pinv, windows) of the 50,000-pose 16-robot sphere
+    from a noisy state, banded and with LARGE_LOOPS loop closures between
+    random pose pairs (built once)."""
+    if not _large:
+        data, gt, _ = generate_world("sphere", n=LARGE_N, num_robots=LARGE_ROBOTS, seed=0)
+        worlds = [("sphere50k", data),
+                  ("sphere50k+loops", add_random_loop_closures(data, gt, LARGE_LOOPS, seed=9))]
+        for wi, (name, d) in enumerate(worlds):
+            prob = LiftedProblem.from_data(d, r=5, dtype=torch.float32, device=DEV)
+            Pinv = quadratic.precond_inverse(
+                quadratic.precond_blocks(prob.edges, prob.n)).contiguous()
+            _large[name] = (name, prob, noisy_state(prob, gt, seed=400 + wi), Pinv,
+                            hbm_rtr.prepare_windows(prob))
+    return list(_large.values())
+
+
+def _df_rel(a, b) -> float:
+    """rel deviation of the cost change f − f0 of two stats vectors."""
+    return abs((a[1] - a[0]) - (b[1] - b[0])) / abs(b[1] - b[0])
+
+
+def phase_compare_window() -> float:
+    """K4 vs its plain version and vs K1 full-width under the robot's mask
+    on every large case; returns the max abs X error against the plain
+    version. Gates: the same TR and tCG counts, X within TOL_K4_X of max
+    |X|, f − f0 within rel TOL_K4_DF (plain) or TOL_K4_K1 (K1, with gn),
+    every pose outside the block bit-identical to the input."""
+    worst = 0.0
+    before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
+    for name, prob, X, Pinv, w in large_cases():
+        for k in K4_ROBOTS:
+            mask = prob.block_mask(k)
+            out = mask[:, 0, 0] == 0
+            Xk, sk = hbm_rtr.rtr_solve_hbm(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
+            Xp, sp = hbm_rtr.rtr_solve_hbm_ref(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
+            X1, s1 = fused_rtr.rtr_solve_fused(X, mask, Pinv, prob.edges, DEMO_PARAMS)
+            X1 = torch.where(mask > 0, X1, X)
+            sk, sp, s1 = (v.double().cpu().numpy() for v in (sk, sp, s1))
+            scale = float(Xp.abs().max())
+            err, err1 = float((Xk - Xp).abs().max()), float((Xk - X1).abs().max())
+            dfp, df1 = _df_rel(sk, sp), _df_rel(sk, s1)
+            gn1 = abs(sk[3] - s1[3]) / abs(s1[3])
+            worst = max(worst, err)
+            print(f"window {name}/robot{k}: TR {int(sk[4])}/{int(sp[4])}/{int(s1[4])} "
+                  f"tCG {int(sk[5])}/{int(sp[5])}/{int(s1[5])} (K4/plain/K1) f-f0 "
+                  f"{sk[1] - sk[0]:.7g} rel {dfp:.2e} / K1 {df1:.2e}; X rel "
+                  f"{err / scale:.2e} / K1 {err1 / scale:.2e}; gn {sk[3]:.5g} K1 rel "
+                  f"{gn1:.2e}; moved {sk[6]:.5g}", flush=True)
+            assert np.isfinite(sk).all() and torch.isfinite(Xk).all(), name
+            assert int(sk[4]) == int(sp[4]) == int(s1[4]), f"{name}/{k}: TR iterations"
+            assert int(sk[5]) == int(sp[5]) == int(s1[5]), f"{name}/{k}: tCG iterations"
+            assert err <= TOL_K4_X * scale and dfp <= TOL_K4_DF, f"{name}/{k}: vs plain"
+            assert err1 <= TOL_K4_X * scale, f"{name}/{k}: X vs K1"
+            assert df1 <= TOL_K4_K1 and gn1 <= TOL_K4_K1, f"{name}/{k}: vs K1"
+            assert torch.equal(Xk[out], X[out]) and torch.equal(Xp[out], X[out]), name
+    assert hbm_rtr.LAUNCHES == before[0] + len(large_cases()) * len(K4_ROBOTS)
+    hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # comparison launches
+    return worst
+
+
+def phase_large_main_path(tmp: str):
+    """The large-world main path on the card, counting kernel launches;
+    returns (K4 launches, summary, extras)."""
+    prefix = os.path.join(tmp, "large")
+    summary, extras, counts = _counted_run(LARGE + ["--output", prefix])
+    k4 = counts["k4"]
+    t = extras["timing_sec"]
+    print("large main path: " + json.dumps(summary), flush=True)
+    print("large main path timing_sec " + json.dumps(t))
+    print(f"large main path: launches {counts}, block "
+          f"updates {extras['block_updates']}, initial cost "
+          f"{extras['initial_cost']:.7g}, solve {t['solve']:.4f} s = "
+          f"{1e3 * t['solve'] / extras['block_updates']:.4f} ms per block update")
+    assert extras["block_updates"] > 0
+    _only(counts, k4=extras["block_updates"])
+    assert summary["final_cost"] < extras["initial_cost"]
+    assert math.isfinite(summary["ate_vs_ground_truth"])
+    for suffix in ["_global.g2o"] + [f"_robot{k}.tum" for k in range(LARGE_ROBOTS)]:
+        assert os.path.getsize(prefix + suffix) > 0, suffix
+    return k4, summary, extras
+
+
+def phase_large_sweep() -> None:
+    """One sweep of 16 RoundRobin updates (tol 0) on the CLI's large world
+    from one Odometry state: K4 on windows, then K1 full-width
+    (``SEQUENTIAL_ON_WINDOWS`` off); cost and rel-change histories within
+    TOL_SWEEP."""
+    data, _, _ = generate_world("sphere", n=LARGE_N, num_robots=LARGE_ROBOTS, seed=42)
+    prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
+    cfg = AgentConfig(num_robots=LARGE_ROBOTS, update_rule=UpdateRule.ROUND_ROBIN,
+                      local_initialization_method=InitMethod.ODOMETRY,
+                      relative_change_tolerance=0.0, RTR_gradnorm_tol=0.5,
+                      max_iteration_number=LARGE_ROBOTS, dtype="float32")
+    eng = RBCDEngine(prob, cfg)
+    st0 = eng.initialize()
+    before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
+    _, i4 = eng.run(st0)
+    with mock.patch.object(rbcd, "SEQUENTIAL_ON_WINDOWS", False):
+        _, i1 = eng.run(st0)
+    assert hbm_rtr.LAUNCHES == before[0] + LARGE_ROBOTS
+    assert fused_rtr.LAUNCHES == before[1] + LARGE_ROBOTS
+    hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # not the main path
+    h4, h1 = i4["history"], i1["history"]
+    crel = _rel(torch.tensor(h4["cost"]), torch.tensor(h1["cost"]))
+    rrel = _rel(torch.tensor(h4["rel_change"]), torch.tensor(h1["rel_change"]))
+    rrob = _rel(torch.tensor(np.stack(h4["rel_change_robots"])),
+                torch.tensor(np.stack(h1["rel_change_robots"])))
+    print(f"large sweep: cost {float(st0.cost):.7g} -> {h4['cost'][-1]:.7g} (K4), "
+          f"{h1['cost'][-1]:.7g} (K1 full-width); history rel: cost {crel:.2e}, "
+          f"rel change {rrel:.2e}, per robot {rrob:.2e}; solve {i4['total_time_sec']:.3f} s "
+          f"(K4) vs {i1['total_time_sec']:.3f} s (K1)", flush=True)
+    assert len(h4["cost"]) == len(h1["cost"]) == LARGE_ROBOTS
+    assert crel <= TOL_SWEEP and rrel <= TOL_SWEEP and rrob <= TOL_SWEEP
+
+
+def phase_timing_window():
+    """K4 ms per solve over the 16 blocks of the banded large case, K1
+    full-width per solve on K4_ROBOTS, the plain version per solve over the
+    16 blocks, same inputs; returns (K4 ms, plain ms, bound (ms, by), K1
+    full-width ms)."""
+    _, prob, X, Pinv, w = large_cases()[0]
+    before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
+    robots = range(LARGE_ROBOTS)
+    masks = {k: prob.block_mask(k) for k in K4_ROBOTS}
+    k4 = lambda: [hbm_rtr.rtr_solve_hbm(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
+                  for k in robots]
+    ref = lambda: [hbm_rtr.rtr_solve_hbm_ref(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
+                   for k in robots]
+    k1 = lambda: [fused_rtr.rtr_solve_fused(X, masks[k], Pinv, prob.edges, DEMO_PARAMS)
+                  for k in K4_ROBOTS]
+    k_ms = _time(k4, 3) / LARGE_ROBOTS
+    p_ms = _time(ref, 1) / LARGE_ROBOTS
+    k1_ms = _time(k1, 1) / len(K4_ROBOTS)
+    k2_ms = _time(k4, 3) / LARGE_ROBOTS
+    stats = [s.double().cpu().numpy() for _, s in k4()]
+    stats1 = [s.double().cpu().numpy() for _, s in k1()]
+    hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # timing launches
+    tcg = [int(s[5]) for s in stats]
+    tcg1 = [int(s[5]) for s in stats1]
+    rof = np.asarray(prob.robot_of_pose)
+    work = [block_work(prob, rof == k) for k in robots]
+    flops = np.mean([rtr_flops(nk, Ek, prob.r, prob.d, int(s[4]), int(s[5]))
+                     for (nk, Ek, _), s in zip(work, stats)])
+    nbytes = np.mean([solve_bytes(prob, *wk, stats=hbm_rtr.STATS_LEN) for wk in work])
+    bnd = bound(nbytes, flops)
+    km = min(k_ms, k2_ms)
+    print(f"timing per solve (sphere50k, 16 robot blocks, tCG/solve {tcg}): K4 "
+          f"{k_ms:.3f} ms, {k2_ms:.3f} ms (second pass), {km / np.mean(tcg):.4f} ms "
+          f"per tCG iteration; K1 full-width {k1_ms:.3f} ms on robots {K4_ROBOTS} "
+          f"(tCG {tcg1}, {k1_ms / np.mean(tcg1):.4f} ms per tCG iteration); plain "
+          f"{p_ms:.3f} ms; bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes:.0f} B, "
+          f"{flops:.4g} flop; per block: poses, edges, separator poses "
+          f"{sorted(set(work))})")
+    return km, p_ms, bnd, k1_ms
+
+
+# K4 against K1 full-width per block solve, below the large world: the
+# dpgo_demo world (2,500 poses, 5 robots) and worlds whose block is the
+# whole world (1 robot) or most of it; (n, robots)
+GATE_WORLDS = ((2500, 5), (2500, 1), (2500, 2), (10000, 4), (20000, 8))
+
+
+def phase_gate_sweep():
+    """K4 and K1 full-width ms per block solve on the same inputs (noisy
+    state, the same robots, up to 4 per world) for every GATE_WORLDS
+    world; returns {world: (K4 ms, K1 ms)}."""
+    before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
+    out = {}
+    for n, R in GATE_WORLDS:
+        data, gt, _ = generate_world("sphere", n=n, num_robots=R, seed=1)
+        prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
+        Pinv = quadratic.precond_inverse(
+            quadratic.precond_blocks(prob.edges, prob.n)).contiguous()
+        w = hbm_rtr.prepare_windows(prob)
+        X = noisy_state(prob, gt, seed=500 + R)
+        robots = range(min(R, 4))
+        masks = {k: prob.block_mask(k) for k in robots}
+        k4 = lambda: [hbm_rtr.rtr_solve_hbm(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
+                      for k in robots]
+        k1 = lambda: [fused_rtr.rtr_solve_fused(X, masks[k], Pinv, prob.edges,
+                                                DEMO_PARAMS) for k in robots]
+        t4 = min(_time(k4, 2), _time(k4, 2)) / len(robots)
+        t1 = min(_time(k1, 2), _time(k1, 2)) / len(robots)
+        s4 = [s.double().cpu().numpy() for _, s in k4()]
+        s1 = [s.double().cpu().numpy() for _, s in k1()]
+        tcg4, tcg1 = [int(s[5]) for s in s4], [int(s[5]) for s in s1]
+        name = f"sphere{n}/{R}"
+        out[name] = (t4, t1)
+        print(f"gate {name}: window poses {w.max_poses} of {n}, K4 {t4:.3f} ms, K1 "
+              f"full-width {t1:.3f} ms per solve (K1/K4 {t1 / t4:.3f}); tCG "
+              f"{tcg4} / {tcg1}", flush=True)
+        assert tcg4 == tcg1, name
+    hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # timing launches
     return out
 
 
@@ -781,18 +1038,24 @@ def main() -> int:
     max_err = _phase("K1 vs plain", phase_compare)
     run_err = _phase("K2 vs plain", phase_compare_run)
     tick_err = _phase("K3 vs plain", phase_compare_tick)
+    window_err = _phase("K4 vs plain and K1", phase_compare_window)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, engine_summary = _phase("engine main path", phase_main_path, tmp)
+        _, engine_summary = _phase("engine main path", phase_main_path, tmp, "RoundRobin")
+        launches, _ = _phase("Parallel main path", phase_main_path, tmp, "Parallel")
+        window_launches, _, _ = _phase("large main path", phase_large_main_path, tmp)
     _phase("fixed iterations", phase_fixed_iterations)
     run_launches = _phase("fused main path", phase_fused_main_path, engine_summary)
     tick_launches, _, _ = _phase("async main path", phase_async_main_path)
     _phase("async fixed ticks", phase_async_fixed_ticks)
     _phase("gnc", phase_gnc)
+    _phase("large sweep", phase_large_sweep)
     k1 = _phase("K1 timing", phase_timing)
     k2 = _phase("K2 timing", phase_timing_run)
     *k3, tick_ms = _phase("K3 timing", phase_timing_tick)
     _phase("mode timing", phase_timing_modes)
     _phase("async timing", phase_timing_async)
+    *k4, k1_full_ms = _phase("K4 timing", phase_timing_window)
+    gate = _phase("K4 vs K1 below the large world", phase_gate_sweep)
     print(card)
     print(json.dumps({"kernels": [
         _kernel("rtr_block_solve", "dpgo_ros_tpu_torch/csrc/rtr_block.cu",
@@ -802,6 +1065,10 @@ def main() -> int:
         _kernel("asapp_tick_fused", "dpgo_ros_tpu_torch/csrc/asapp_tick.cu",
                 "dpgo_ros_tpu/ops/fused_asapp.py:200", tick_launches, tick_err, *k3,
                 tick_ms=tick_ms),
+        _kernel("rtr_window_solve", "dpgo_ros_tpu_torch/csrc/rtr_window.cu",
+                "dpgo_ros_tpu/ops/hbm_rtr.py:257", window_launches, window_err, *k4,
+                k1_full_width_ms=k1_full_ms,
+                k4_k1_ms_by_world={w: list(t) for w, t in gate.items()}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

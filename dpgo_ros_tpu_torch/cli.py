@@ -15,10 +15,11 @@ Demo presets mirror the reference launch files:
   K = max(3, ``--max_delayed_iterations``) (``launch/asapp_demo.launch``;
   sphere2500 unless another source is given).
 
-``--mode engine`` runs the host-driven loop, one launch of the CUDA
-block-solve kernel (K1) per block update; ``--mode fused`` runs one launch
-of the multi-step kernel (K2) per stretch between GNC weight rounds (one
-launch in all for an L2 run); ``--mode async`` (or ``--asynchronous true``
+``--mode engine`` runs the host-driven loop, one launch of a CUDA
+block-solve kernel per block update: the windowed solve (K4) for
+RoundRobin, the full-width solve (K1) for Parallel; ``--mode fused`` runs
+one launch of the multi-step kernel (K2) per stretch between GNC weight
+rounds (one launch in all for an L2 run); ``--mode async`` (or ``--asynchronous true``
 in engine mode) runs the ASAPP ticks, one launch of the tick kernel (K3)
 per tick. On ``--device cpu`` all run the kernels' plain versions.
 

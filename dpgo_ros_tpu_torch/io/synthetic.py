@@ -205,3 +205,61 @@ def generate_world(
         measurements=m, num_poses=num_poses, d=3, initial_guess=gt
     )
     return data, T_gt, outlier_mask
+
+
+def add_random_loop_closures(
+    data: PoseGraphData,
+    ground_truth: np.ndarray,
+    count: int,
+    seed: int = 0,
+    rot_noise: float = 0.01,
+    trans_noise: float = 0.05,
+) -> PoseGraphData:
+    """``data`` plus ``count`` loop closures between random pose pairs
+    (drawn with numpy from ``seed``; never two consecutive poses, so none
+    reads as odometry), measured from ``ground_truth`` (n, 3, 4) with the
+    generator's noise and the world's first κ and τ. It makes a banded
+    world irregular: loop closures that reach any pose, in any robot.
+
+    A check-only generator, the one function of this module that its JAX
+    twin lacks: no CLI flag or engine path calls it; chip_smoke.py and the
+    tests use it to hold the windowed block solve to the full-width one on
+    irregular graphs."""
+    rng = np.random.default_rng(seed)
+    n = ground_truth.shape[0]
+    pairs = np.zeros((0, 2), np.int64)
+    while len(pairs) < count:
+        cand = rng.integers(0, n, size=(count, 2))
+        cand = cand[np.abs(cand[:, 0] - cand[:, 1]) > 1]
+        pairs = np.concatenate([pairs, cand])[:count]
+    src, dst = pairs[:, 0], pairs[:, 1]
+    R_gt, pos = ground_truth[:, :, :3], ground_truth[:, :, 3]
+    Ri, Rj = R_gt[src], R_gt[dst]
+    R_rel = np.einsum("eij,eik->ejk", Ri, Rj)
+    R_rel = np.einsum(
+        "eij,ejk->eik", R_rel, _random_small_rotations(rng, count, rot_noise)
+    )
+    t_rel = np.einsum("eij,ei->ej", Ri, pos[dst] - pos[src])
+    t_rel = t_rel + rng.standard_normal((count, 3)) * trans_noise
+    m = data.measurements
+    robot = np.repeat(np.arange(data.num_robots), data.num_poses)
+    start = np.concatenate([[0], np.cumsum(data.num_poses)[:-1]])
+    local = np.arange(n) - start[robot]
+    edge_type = classify_edge_types(robot[src], local[src], robot[dst], local[dst])
+    extra = MeasurementBatch(
+        src_robot=robot[src].astype(np.int32),
+        src_frame=local[src].astype(np.int32),
+        dst_robot=robot[dst].astype(np.int32),
+        dst_frame=local[dst].astype(np.int32),
+        R=R_rel,
+        t=t_rel,
+        kappa=np.full(count, m.kappa[0]),
+        tau=np.full(count, m.tau[0]),
+        weight=np.ones(count),
+        fixed_weight=np.zeros(count, bool),
+        edge_type=edge_type,
+    )
+    return PoseGraphData(
+        measurements=m.concat(extra), num_poses=data.num_poses, d=data.d,
+        initial_guess=data.initial_guess,
+    )

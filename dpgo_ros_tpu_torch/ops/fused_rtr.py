@@ -1,6 +1,6 @@
 """The RTR block solve (K1) and the multi-step runner (K2) as hand-written
 CUDA kernels, and the build of every kernel of the package (K3's wrapper is
-``ops/fused_asapp.py``).
+``ops/fused_asapp.py``, K4's ``ops/hbm_rtr.py``).
 
 K1 ports ``dpgo_ros_tpu/ops/fused_rtr.py::rtr_solve_fused`` (the Pallas
 kernel built by ``_make_rtr_kernel``): one masked RTR block solve per
@@ -56,6 +56,7 @@ HEADER = _PKG / "csrc" / "rtr_common.cuh"
 SOURCE = _PKG / "csrc" / "rtr_block.cu"  # K1
 RUN_SOURCE = _PKG / "csrc" / "rtr_run.cu"  # K2
 TICK_SOURCE = _PKG / "csrc" / "asapp_tick.cu"  # K3, wrapped in ops/fused_asapp.py
+WINDOW_SOURCE = _PKG / "csrc" / "rtr_window.cu"  # K4, wrapped in ops/hbm_rtr.py
 BUILD_DIR = _PKG.parent / "build" / "dpgo_ros_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -93,7 +94,7 @@ def build_all(sources: Optional[List[Path]] = None) -> List[Tuple[Path, str]]:
     source, all started together. Returns (library path, ptxas report) per
     source; raises if any nvcc fails."""
     sources = (list(sources) if sources is not None
-               else [SOURCE, RUN_SOURCE, TICK_SOURCE])
+               else [SOURCE, RUN_SOURCE, TICK_SOURCE, WINDOW_SOURCE])
     libs = [_lib_path(src) for src in sources]
     procs = []
     for src, lib in zip(sources, libs):
@@ -134,7 +135,14 @@ def _library(source: Path) -> ctypes.CDLL:
         path, _ = build(source)
         lib = ctypes.CDLL(str(path))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if source == TICK_SOURCE:
+        if source == WINDOW_SOURCE:
+            lib.dpgo_rtr_window_solve.argtypes = (
+                [ci] * 6 + [vp] * 14 + [ci, ci] + [cf] * 5 + [vp]
+            )
+            lib.dpgo_rtr_window_solve.restype = ci
+            lib.dpgo_rtr_window_workspace_floats.argtypes = [ci] * 4
+            lib.dpgo_rtr_window_workspace_floats.restype = ctypes.c_longlong
+        elif source == TICK_SOURCE:
             lib.dpgo_asapp_tick.argtypes = (
                 [ci] * 9 + [vp] * 13 + [cf] + [vp] * 4
             )

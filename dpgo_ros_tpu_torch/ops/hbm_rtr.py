@@ -1,0 +1,245 @@
+"""The windowed block solve (K4) as a hand-written CUDA kernel on a
+gathered window, its plain version and the window tables. The engine runs
+every RoundRobin block solve through it (``parallel/rbcd.py``).
+
+K4 ports ``dpgo_ros_tpu/ops/hbm_rtr.py::rtr_solve_hbm`` (the Pallas kernel
+built by ``_make_hbm_kernel``, with ``prepare_operands`` and
+``window_width``): one masked RTR block solve of one robot's block that
+touches only what the block needs, so its cost follows the block and not
+the world. The JAX kernel copies a contiguous 256-aligned lane window with
+a halo out of memory-resident operands and takes banded graphs only; here
+:func:`prepare_windows` builds, once per problem, each robot's window as
+a gather: its block's poses in order, then its separator poses (the far
+endpoints of the edges that touch the block) sorted; the global ids of
+those edges in global edge order; their local endpoints; and a local pull
+index. Any graph works, banded or not. Because the edges keep their global
+order, each block pose's local pull row lists the same contributions in
+the same order as its global row, so the kernel's gather-sums add in K1's
+order. The tables hold structure only: R, t and the effective weights are
+read through the global edge ids at every call, so a GNC weight round
+needs no rebuild.
+
+:func:`rtr_solve_hbm` launches the kernel (``csrc/rtr_window.cu``) for
+CUDA tensors and raises if it cannot be built or launched; for CPU tensors
+it runs the plain version :func:`rtr_solve_hbm_ref` (gather the local
+``EdgeSet``, the ported ``rtr_solve`` on it, scatter the block back). No
+path falls back from one to the other.
+
+Stats vector (length 7): ``[f0, f, gn0, gn, TR iterations, tCG iterations,
+moved]``, the JAX kernel's first 7 entries. f is the window's LOCAL cost
+(the edges incident to the block), not the world's; only block poses move,
+so the global cost moves by f − f0. X_new is a copy of X in which only the
+block's poses changed: separators and every other pose are bit-identical.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import operator
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from dpgo_ros_tpu_torch.models.local_solvers import RTRParams, rtr_solve
+from dpgo_ros_tpu_torch.ops import fused_rtr
+from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet, build_pull_index
+
+S_MOVED = 6
+STATS_LEN = 7
+
+# launches of the CUDA kernel (not of the plain version)
+LAUNCHES = 0
+
+
+@dataclasses.dataclass
+class Windows:
+    """Every robot's window, packed as CSR: robot k's local poses are
+    ``poses[pose_off[k]:pose_off[k+1]]`` (its ``num_poses[k]`` block poses
+    first) with their pull rows at the same positions of ``pull``, and its
+    local edges ``edges/src/dst[edge_off[k]:edge_off[k+1]]``. Local pull
+    entries index the window's contribution rows (local edge j as src ↦ j,
+    as dst ↦ E_k + j, padding 2·E_k for E_k local edges)."""
+
+    n: int
+    num_edges: int
+    num_poses: np.ndarray  # (R,) block sizes
+    pose_off: np.ndarray  # (R+1,) host
+    edge_off: np.ndarray  # (R+1,) host
+    poses: torch.Tensor  # (Σ nw,) int32 global pose ids
+    edges: torch.Tensor  # (Σ ew,) int32 global edge ids, global order
+    src: torch.Tensor  # (Σ ew,) int32 local endpoints
+    dst: torch.Tensor
+    pull: torch.Tensor  # (Σ nw, D) int32
+    offsets: torch.Tensor  # (R+1,) int32 robot block bounds
+
+    @property
+    def num_robots(self) -> int:
+        return int(self.num_poses.shape[0])
+
+    @property
+    def max_poses(self) -> int:
+        return int(np.diff(self.pose_off).max())
+
+    @property
+    def max_edges(self) -> int:
+        return int(np.diff(self.edge_off).max())
+
+    def window(self, robot: int):
+        """(poses, edges, src, dst, pull) of one robot: views of the tables."""
+        a, b = int(self.pose_off[robot]), int(self.pose_off[robot + 1])
+        c, e = int(self.edge_off[robot]), int(self.edge_off[robot + 1])
+        return (self.poses[a:b], self.edges[c:e], self.src[c:e],
+                self.dst[c:e], self.pull[a:b])
+
+
+def prepare_windows(problem) -> Windows:
+    """Every robot's window of ``problem`` (a ``LiftedProblem``), built on
+    the host from its static structure and placed on its device. The
+    counterpart of the JAX package's ``prepare_operands`` +
+    ``window_width``."""
+    he = problem.host_edges
+    src, dst = np.asarray(he.src, np.int64), np.asarray(he.dst, np.int64)
+    n = problem.n
+    bounds = np.concatenate([problem.offsets, [n]]).astype(np.int64)
+    loc = np.full(n, -1, np.int64)
+    poses, edges, lsrc, ldst, pulls = [], [], [], [], []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        eids = np.flatnonzero(((src >= a) & (src < b)) | ((dst >= a) & (dst < b)))
+        ends = np.concatenate([src[eids], dst[eids]])
+        sep = np.unique(ends[(ends < a) | (ends >= b)])
+        pk = np.concatenate([np.arange(a, b), sep])
+        loc[pk] = np.arange(pk.size)
+        ls, ld = loc[src[eids]], loc[dst[eids]]
+        loc[pk] = -1
+        poses.append(pk)
+        edges.append(eids)
+        lsrc.append(ls)
+        ldst.append(ld)
+        pulls.append(build_pull_index(ls, ld, pk.size))
+    D = max(p.shape[1] for p in pulls)
+    pull = np.concatenate([
+        np.pad(p, ((0, 0), (0, D - p.shape[1])), constant_values=2 * e.size)
+        for p, e in zip(pulls, edges)
+    ])
+    dev = problem.device
+    i32 = lambda parts: torch.as_tensor(
+        np.concatenate(parts).astype(np.int32), device=dev)
+    csr = lambda parts: np.concatenate([[0], np.cumsum([p.size for p in parts])])
+    return Windows(
+        n=n, num_edges=int(src.size),
+        num_poses=np.asarray(problem.num_poses, np.int64),
+        pose_off=csr(poses), edge_off=csr(edges),
+        poses=i32(poses), edges=i32(edges), src=i32(lsrc), dst=i32(ldst),
+        pull=torch.as_tensor(pull, dtype=torch.int32, device=dev),
+        offsets=torch.as_tensor(bounds, dtype=torch.int32, device=dev),
+    )
+
+
+def rtr_solve_hbm(
+    X: torch.Tensor,
+    robot: int,
+    Pinv: torch.Tensor,
+    edges: EdgeSet,
+    params: RTRParams,
+    windows: Windows,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One RTR solve of robot ``robot``'s block on its window.
+
+    X (n, r, d+1), Pinv (n, d+1, d+1) the damped block-Jacobi inverse,
+    ``edges`` the world's edges with their current weights, ``windows``
+    from :func:`prepare_windows` of the same problem. Returns (X_new,
+    stats) as the module docstring says. The operand checks run on both
+    devices; the float32 requirement only where the kernel runs.
+    """
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rtr_solve_hbm: unsupported device {X.device}")
+    on_card = X.device.type == "cuda"
+    _, kw, tw, _ = fused_rtr._checked_operands(
+        "rtr_solve_hbm", X, None, Pinv, edges, params, windows.offsets,
+        torch.float32 if on_card else X.dtype,
+    )
+    if windows.n != X.shape[0] or windows.num_edges != edges.num_edges:
+        raise ValueError(
+            f"rtr_solve_hbm: windows of a world of {windows.n} poses and "
+            f"{windows.num_edges} edges, got {X.shape[0]} and {edges.num_edges}"
+        )
+    if windows.poses.device != X.device:
+        raise ValueError(
+            f"rtr_solve_hbm: windows on {windows.poses.device}, X on {X.device}"
+        )
+    if isinstance(robot, bool):
+        raise TypeError("rtr_solve_hbm: robot must be an integer")
+    robot = operator.index(robot)
+    if not 0 <= robot < windows.num_robots:
+        raise ValueError(
+            f"rtr_solve_hbm: robot {robot} outside 0..{windows.num_robots - 1}"
+        )
+    if not on_card:
+        return rtr_solve_hbm_ref(X, robot, Pinv, edges, params, windows)
+    return _launch(X, robot, Pinv, edges, params, windows, kw, tw)
+
+
+def _launch(X, robot, Pinv, edges, params, windows, kw, tw):
+    global LAUNCHES
+    n, r, dp1 = X.shape
+    d = dp1 - 1
+    poses, eids, lsrc, ldst, pull = windows.window(robot)
+    lib = fused_rtr._library(fused_rtr.WINDOW_SOURCE)
+    ws = lib.dpgo_rtr_window_workspace_floats(
+        d, r, windows.max_poses, windows.max_edges)
+    X_out = X.clone()
+    stats = torch.empty(STATS_LEN, dtype=torch.float32, device=X.device)
+    work = torch.empty(ws, dtype=torch.float32, device=X.device)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(X.device):  # launch on X's card, in its stream
+        rc = lib.dpgo_rtr_window_solve(
+            d, r, int(poses.shape[0]), int(eids.shape[0]),
+            int(windows.num_poses[robot]), int(pull.shape[1]),
+            p(X), p(Pinv), p(edges.R), p(edges.t), p(kw), p(tw),
+            p(poses), p(eids), p(lsrc), p(ldst), p(pull),
+            p(X_out), p(stats), p(work),
+            int(params.max_iterations), int(params.max_tcg_iterations),
+            float(params.gradnorm_tol), float(params.initial_radius),
+            float(params.max_radius), float(params.tcg_kappa),
+            float(params.tcg_theta),
+            ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"rtr_window_solve launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return X_out, stats
+
+
+def rtr_solve_hbm_ref(
+    X: torch.Tensor,
+    robot: int,
+    Pinv: torch.Tensor,
+    edges: EdgeSet,
+    params: RTRParams,
+    windows: Windows,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4: gather the window's ``EdgeSet``, run
+    ``rtr_solve`` on it under the block mask, scatter the block back; the
+    same stats vector (in X's dtype). Runs on any device."""
+    poses, eids, lsrc, ldst, pull = windows.window(robot)
+    nb = int(windows.num_poses[robot])
+    pl, el = poses.long(), eids.long()
+    local = EdgeSet(
+        src=lsrc.long(), dst=ldst.long(), R=edges.R[el], t=edges.t[el],
+        kappa=edges.kappa[el], tau=edges.tau[el], weight=edges.weight[el],
+        mask=edges.mask[el], is_loop=edges.is_loop[el], pull=pull,
+    )
+    Xw = X[pl]
+    m = torch.zeros((pl.shape[0], 1, 1), dtype=X.dtype, device=X.device)
+    m[:nb] = 1.0
+    Xw_new, res = rtr_solve(Xw, local, m, Pinv[pl], params)
+    X_out = X.clone()
+    X_out[pl[:nb]] = Xw_new[:nb]
+    moved = torch.sqrt(((Xw_new[:nb] - Xw[:nb]) ** 2).sum())
+    count = lambda v: torch.tensor(float(v), dtype=X.dtype, device=X.device)
+    return X_out, torch.stack([
+        res.f_init, res.f_opt, res.gradnorm_init, res.gradnorm_opt,
+        count(res.iterations), count(res.tcg_iterations), moved,
+    ])

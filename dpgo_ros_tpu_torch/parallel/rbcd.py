@@ -11,8 +11,11 @@ coordinate descent over robot pose blocks on one global lifted state X.
 
 Two runners drive the same step semantics:
 
-* :meth:`RBCDEngine.run` (``--mode engine``) — a host loop; each block
-  update is one ``fused_rtr.rtr_solve_fused`` call (K1).
+* :meth:`RBCDEngine.run` (``--mode engine``) — a host loop; each
+  RoundRobin update is one ``hbm_rtr.rtr_solve_hbm`` call (K4) on the
+  robot's gathered window, each Parallel update one
+  ``fused_rtr.rtr_solve_fused`` call (K1) full-width under the colour
+  class's mask.
 * :meth:`RBCDEngine.make_fused_run` (``--mode fused``) — one
   ``fused_rtr.rtr_run_fused`` call (K2) per stretch between GNC weight
   rounds; an L2 run is one call.
@@ -28,6 +31,7 @@ ported yet and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
@@ -46,8 +50,22 @@ from dpgo_ros_tpu_torch.models import robust
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import chordal as chordal_ops
-from dpgo_ros_tpu_torch.ops import fused_rtr, lie, quadratic, rounding, stiefel
+from dpgo_ros_tpu_torch.ops import (
+    fused_rtr,
+    hbm_rtr,
+    lie,
+    quadratic,
+    rounding,
+    stiefel,
+)
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet, build_pull_index
+
+# Sequential block solves run on the robot's gathered window (K4): on the
+# H100 it beat K1 full-width under the robot's mask on every multi-robot
+# world chip_smoke.py's gate phase times, from 2,500 poses and 2 robots up,
+# and lost by 3 % only where the window is the whole world (1 robot). False
+# runs them full-width (K1), the route the windowed one is held against.
+SEQUENTIAL_ON_WINDOWS = True
 
 
 class RBCDState(NamedTuple):
@@ -143,6 +161,11 @@ class RBCDEngine:
             bounds, dtype=torch.int32, device=self.device
         )
         self.Ylift: Optional[torch.Tensor] = None
+
+    @functools.cached_property
+    def _windows(self) -> hbm_rtr.Windows:
+        """Every robot's window, built on the first windowed solve."""
+        return hbm_rtr.prepare_windows(self.problem)
 
     def _require_rtr(self) -> None:
         """The runners solve blocks with RTR only. An asynchronous config
@@ -351,20 +374,30 @@ class RBCDEngine:
             quadratic.precond_blocks(e, self.problem.n)
         ).contiguous()
 
-    def _local_solve(self, X, e, mask, Pinv) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One masked block solve → (X_new, K1 stats): the kernel for CUDA
-        tensors, its plain version for CPU tensors."""
+    def _local_solve(self, st: RBCDState, e, mask, Pinv, robot=None):
+        """One masked block solve → (X_new, stats, cost of X_new): K4 on
+        robot ``robot``'s window for a sequential step, K1 full-width under
+        ``mask`` for a Parallel one (each the kernel for CUDA tensors, its
+        plain version for CPU tensors). K4's f is its window's local cost;
+        only block poses move, so the global cost moves by its f − f0."""
+        if robot is not None and SEQUENTIAL_ON_WINDOWS:
+            X_new, stats = hbm_rtr.rtr_solve_hbm(
+                st.X, robot, Pinv, e, self.rtr_params, self._windows
+            )
+            dcost = stats[fused_rtr.S_F] - stats[fused_rtr.S_F0]
+            return X_new, stats, st.cost + dcost.to(self.dtype)
         Xk, stats = fused_rtr.rtr_solve_fused(
-            X, mask, Pinv, e, self.rtr_params, offsets=self._offsets
+            st.X, mask, Pinv, e, self.rtr_params, offsets=self._offsets
         )
-        return torch.where(mask > 0, Xk, X), stats
+        return torch.where(mask > 0, Xk, st.X), stats, stats[fused_rtr.S_F].to(self.dtype)
 
-    def _block_update(self, st: RBCDState, mask, e, Pinv):
-        """One masked block update (no acceleration): (X_new, V_new, stats, θ)."""
-        X_new, stats = self._local_solve(st.X, e, mask, Pinv)
-        return X_new, X_new, stats, st.theta
+    def _block_update(self, st: RBCDState, mask, e, Pinv, robot=None):
+        """One masked block update (no acceleration): (X_new, V_new, stats,
+        θ, cost)."""
+        X_new, stats, cost = self._local_solve(st, e, mask, Pinv, robot)
+        return X_new, X_new, stats, st.theta, cost
 
-    def _finish_step(self, st: RBCDState, X_new, V_new, stats, theta, mask):
+    def _finish_step(self, st: RBCDState, X_new, V_new, stats, theta, cost, mask):
         """Per-robot block-Frobenius relative change, with the neighbour
         invalidation bump: a robot not updated this step keeps at least
         max_k adj[k, j] · moved_k, so termination needs a quiescent
@@ -385,7 +418,7 @@ class RBCDEngine:
             V=V_new,
             theta=theta,
             iteration=st.iteration + 1,
-            cost=stats[fused_rtr.S_F].to(self.dtype),
+            cost=cost,
             rel_change=rel_change,
         ), rc, stats[fused_rtr.S_TCG]
 
@@ -394,7 +427,9 @@ class RBCDEngine:
         e = self._edges(st.weights)
         mask = self._masks[robot]
         Pinv = Pinv if Pinv is not None else self._solver_cache(e)
-        return self._finish_step(st, *self._block_update(st, mask, e, Pinv), mask)
+        return self._finish_step(
+            st, *self._block_update(st, mask, e, Pinv, robot), mask
+        )
 
     def _step_parallel_impl(self, st: RBCDState, color: int, Pinv=None):
         """All robots of one color update at once (union-mask block solve)."""
@@ -530,6 +565,9 @@ class RBCDEngine:
                 callback(it, state)
             if self._terminated(rel, state.weight_update_count):
                 break
+        # the steps carry the cost by the windows' f − f0: end on the
+        # world's cost of the final state
+        state = state._replace(cost=quadratic.cost(state.X, self._edges(state.weights)))
         info = {
             "history": history,
             "iterations": it,
@@ -574,7 +612,8 @@ class RBCDEngine:
         ``robust_opt_num_resets`` rounds sets X back to the run's starting
         state. The schedule and mask bank are built on the host
         (:meth:`mask_bank_and_schedule`) and ``max_iters`` is the absolute
-        iteration cap.
+        iteration cap. Its steps run full-width: the windowed solve (K4)
+        is the engine loop's.
 
         ``record=True`` returns ``(state, rel_hist (max_iters, R) with NaN
         rows for iterations not run, event_hist (max_iters,) int8 with 1

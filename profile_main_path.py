@@ -4,20 +4,25 @@
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 profile_main_path.py [--mode engine|fused|async] [--top 12]
+    python3 profile_main_path.py --world sphere50k
 
 Runs the CLI main path (``--demo dpgo_demo --synthetic sphere
 --synthetic_n 2500 --device cuda --mode MODE``; for ``async`` the
-``--demo asapp_demo`` path on the same world) once to build the kernels
-and load the CUDA libraries, then once more under ``torch.profiler``.
+``--demo asapp_demo`` path on the same world; with ``--world sphere50k``
+the large-world engine route, ``--synthetic sphere --synthetic_n 50000
+--num_robots 16`` with Odometry init, RoundRobin and at most 10 sweeps)
+once to build the kernels and load the CUDA libraries, then once more
+under ``torch.profiler``.
 From the profiled run's trace it prints:
 
 * the CLI's wall split (init / solve / rounding / export);
 * device busy time: the union of the intervals of kernel, memcpy and
   memset events on the card;
-* the device time of the block-solve kernel (K1, engine mode), of the
-  multi-step kernel (K2, fused mode) and of the ASAPP tick kernel (K3,
-  async mode), each with its share of busy time, its launches and its mean
-  per launch;
+* the device time of the windowed block solve (K4, engine mode's
+  RoundRobin updates), of the full-width block solve (K1, Parallel
+  updates; none here), of the multi-step kernel (K2, fused mode) and of
+  the ASAPP tick kernel (K3, async mode), each with its share of busy
+  time, its launches and its mean per launch;
 * the idle share, 1 − busy / wall, where wall is the host time of the
   profiled ``cli.run`` call;
 * the ``--top`` operators by device time.
@@ -41,16 +46,29 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dpgo_ros_tpu_torch import cli
-from dpgo_ros_tpu_torch.ops import fused_asapp, fused_rtr
+from dpgo_ros_tpu_torch.ops import fused_asapp, fused_rtr, hbm_rtr
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-KERNELS = {"k1": "rtr_block_kernel", "k2": "rtr_run_kernel", "k3": "asapp_tick_kernel"}
-WORLD = ["--synthetic", "sphere", "--synthetic_n", "2500", "--device", "cuda"]
+KERNELS = {"k1": "rtr_block_kernel", "k2": "rtr_run_kernel", "k3": "asapp_tick_kernel",
+           "k4": "rtr_window_kernel"}
+WORLDS = {
+    "sphere2500": ["--synthetic", "sphere", "--synthetic_n", "2500"],
+    # chip_smoke.py's large-world main path
+    "sphere50k": ["--synthetic", "sphere", "--synthetic_n", "50000", "--num_robots", "16",
+                  "--local_initialization_method", "Odometry", "--update_rule",
+                  "RoundRobin", "--RTR_gradnorm_tol", "0.5",
+                  "--relative_change_tolerance", "0.2", "--max_iteration_number", "160"],
+}
 
 
 def _launches():
     return {"k1": fused_rtr.LAUNCHES, "k2": fused_rtr.RUN_LAUNCHES,
-            "k3": fused_asapp.TICK_LAUNCHES}
+            "k3": fused_asapp.TICK_LAUNCHES, "k4": hbm_rtr.LAUNCHES}
+
+
+def _zero_launches():
+    fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = fused_asapp.TICK_LAUNCHES = 0
+    hbm_rtr.LAUNCHES = 0
 
 
 def busy_us(events) -> float:
@@ -67,8 +85,11 @@ def busy_us(events) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", choices=["engine", "fused", "async"], default="engine")
+    ap.add_argument("--world", choices=list(WORLDS), default="sphere2500")
     ap.add_argument("--top", type=int, default=12)
     a = ap.parse_args(argv)
+    if a.world == "sphere50k" and a.mode != "engine":
+        ap.error("--world sphere50k profiles the engine route only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: torch.cuda.is_available() is false")
     card = subprocess.run(
@@ -77,13 +98,17 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
 
-    demo = "asapp_demo" if a.mode == "async" else "dpgo_demo"
-    argv = ["--demo", demo] + WORLD + ["--mode", a.mode]
+    if a.world == "sphere50k":
+        argv = WORLDS[a.world]
+    else:
+        demo = "asapp_demo" if a.mode == "async" else "dpgo_demo"
+        argv = ["--demo", demo] + WORLDS[a.world]
+    argv = argv + ["--device", "cuda", "--mode", a.mode]
     summary, extras = cli.run(argv)  # build, library loads, allocator warm-up
     print("warm-up run: " + json.dumps(summary), flush=True)
     print("warm-up timing_sec " + json.dumps(extras["timing_sec"]), flush=True)
 
-    fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = fused_asapp.TICK_LAUNCHES = 0
+    _zero_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.time()
@@ -104,7 +129,7 @@ def main(argv=None) -> int:
     if not dev:
         raise SystemExit("profile_main_path: the trace holds no device events")
     busy_ms = busy_us(dev) / 1e3
-    out = {"card": card, "mode": a.mode, "wall_ms": wall_ms,
+    out = {"card": card, "mode": a.mode, "world": a.world, "wall_ms": wall_ms,
            "timing_sec": extras["timing_sec"], "device_busy_ms": busy_ms}
     for key, name in KERNELS.items():
         ev = [e for e in dev if name in e.get("name", "")]
@@ -113,12 +138,13 @@ def main(argv=None) -> int:
         out.update({f"{key}_ms": ms, f"{key}_launches": len(ev),
                     f"{key}_ms_per_launch": ms / max(len(ev), 1),
                     f"{key}_share_of_busy": ms / busy_ms})
-    if a.mode == "engine":
-        want = {"k1": extras["block_updates"], "k2": 0, "k3": 0}
+    want = dict.fromkeys(KERNELS, 0)
+    if a.mode == "engine":  # RoundRobin: one K4 launch per block update
+        want["k4"] = extras["block_updates"]
     elif a.mode == "fused":
-        want = {"k1": 0, "k2": 1, "k3": 0}
+        want["k2"] = 1
     else:
-        want = {"k1": 0, "k2": 0, "k3": summary["ticks"]}
+        want["k3"] = summary["ticks"]
     assert launches == want and max(want.values()) > 0, (launches, want)
 
     rows = sorted(prof.key_averages(), key=lambda r: -r.device_time_total)

@@ -109,8 +109,9 @@ def test_every_block_update_goes_through_rtr_solve_fused(
     problems, monkeypatch, use_fused_kernel
 ):
     """On the CPU the engine has one solve path whatever use_fused_kernel
-    says: every block update is one rtr_solve_fused call (the card's entry
-    point), which runs the kernel's plain version for CPU tensors."""
+    says: every Parallel block update is one rtr_solve_fused call (the
+    card's entry point), which runs the kernel's plain version for CPU
+    tensors. RoundRobin's windowed route is tests/test_torch_hbm_rtr.py's."""
     _, tp = problems
     calls = []
     real = fused_rtr.rtr_solve_fused
@@ -121,7 +122,8 @@ def test_every_block_update_goes_through_rtr_solve_fused(
 
     monkeypatch.setattr(fused_rtr, "rtr_solve_fused", counting)
     launches = fused_rtr.LAUNCHES
-    eng = RBCDEngine(tp, port_config(_cfg(use_fused_kernel=use_fused_kernel)))
+    cfg = _cfg(UpdateRule.PARALLEL, use_fused_kernel=use_fused_kernel)
+    eng = RBCDEngine(tp, port_config(cfg))
     _, info = eng.run(eng.initialize(ylift=np.eye(5, 3)), max_iters=4)
     assert info["iterations"] == 4
     assert calls == ["cpu"] * 4

@@ -33,6 +33,7 @@ from dpgo_ros_tpu.utils.config import (
 from dpgo_ros_tpu_torch.models import robust
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import stiefel
+from dpgo_ros_tpu_torch.parallel import rbcd
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine, state_to_numpy
 from torch_parity import port_config, rel_err
 
@@ -284,8 +285,12 @@ def test_reset_reinitializes_with_current_ylift(problems):
 
 @pytest.mark.parametrize("rule", [UpdateRule.ROUND_ROBIN, UpdateRule.PARALLEL])
 @pytest.mark.parametrize("cost", ["L2", "GNC"])
-def test_fused_runner_matches_engine_run(problems, rule, cost):
+def test_fused_runner_matches_engine_run(problems, monkeypatch, rule, cost):
+    """The fused runner's steps are the engine loop's, full-width (its
+    RoundRobin steps on windows are held to these in
+    tests/test_torch_hbm_rtr.py)."""
     _, tp, _ = problems
+    monkeypatch.setattr(rbcd, "SEQUENTIAL_ON_WINDOWS", False)
     kw = dict(update_rule=rule, robust_opt_num_resets=1)
     if cost == "L2":
         kw.update(robust_cost_type=RobustCostType.L2, max_iteration_number=40)
