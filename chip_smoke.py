@@ -7,9 +7,10 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero; nothing is caught):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the four kernels, K1 (csrc/rtr_block.cu), K2 (csrc/rtr_run.cu),
-     K3 (csrc/asapp_tick.cu) and K4 (csrc/rtr_window.cu), one nvcc per
-     source started together; print ptxas's report;
+  2. build the five kernel libraries, K1 (csrc/rtr_block.cu), K2
+     (csrc/rtr_run.cu), K3 (csrc/asapp_tick.cu), K4 (csrc/rtr_window.cu)
+     and K5 + K6 (csrc/peak_chains.cu), one nvcc per source started
+     together; print ptxas's report;
   3. hold K1 against its plain PyTorch version on the card, on the
      2,500-pose 5-robot synthetic sphere (every robot mask and every
      Parallel colour union), on a 1,000-pose grid3d world (irregular loop
@@ -61,7 +62,17 @@ Phases (any failure exits nonzero; nothing is caught):
      solve phase;
  13. time K4 against K1 full-width per block solve below the large world:
      the dpgo_demo world, and worlds whose window is the whole world (1
-     robot) or most of it (the measurement behind ``SEQUENTIAL_ON_WINDOWS``).
+     robot) or most of it (the measurement behind ``SEQUENTIAL_ON_WINDOWS``);
+ 14. hold K5 and K6, the calibration chains (csrc/peak_chains.cu), against
+     their plain versions on measure_peaks' inputs at 1, 7, 500 and 2,000
+     steps: bit-identical (max abs error 0);
+ 15. drive the roofline path (``dpgo_ros_tpu_torch.scripts.roofline`` on
+     the sphere2500 stand-in, short chains) with the counters zeroed just
+     before: both calibrations (K5, K6) valid and within a factor 2 of each
+     other, the K1 (all-ones mask) and K4 (robot 0) forced sweeps running
+     3·K tCG iterations in every solve with valid slopes; K1, K4, K5 and K6
+     launched;
+ 16. time K5 and K6 against their plain versions at 2,000 steps.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
@@ -71,9 +82,11 @@ over the card's memory rate and its operations over the fp32 rate, counted
 over the poses and edges each block solve or robot step needs, with which
 of the two bounds it — and the library call's time, null: no single
 PyTorch call computes these functions; K3 also its whole tick's ms, K4
-also K1's full-width ms on the same blocks and phase 13's pairs), and the
-line before that the card's name and power limit. K1's launches are the
-Parallel main path's, K4's the large world's.
+also K1's full-width ms on the same blocks and phase 13's pairs; K5 and K6
+their ms at 2,000 steps, their rate and the calibration's), and the line
+before that the card's name and power limit. K1's launches are the
+Parallel main path's, K4's the large world's, K5's and K6's the roofline
+path's.
 """
 
 from __future__ import annotations
@@ -81,7 +94,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -96,13 +108,30 @@ from dpgo_ros_tpu_torch.utils.config import AgentConfig, InitMethod, UpdateRule
 from dpgo_ros_tpu_torch import cli
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_asapp, fused_rtr, hbm_rtr, quadratic, stiefel
+from dpgo_ros_tpu_torch.ops import (
+    fused_asapp,
+    fused_rtr,
+    hbm_rtr,
+    peak_chains,
+    quadratic,
+    stiefel,
+)
 from dpgo_ros_tpu_torch.parallel import rbcd
 from dpgo_ros_tpu_torch.parallel.asapp import ASAPPEngine
 from dpgo_ros_tpu_torch.parallel.rbcd import (
     RBCDEngine,
     state_from_numpy,
     state_to_numpy,
+)
+from dpgo_ros_tpu_torch.scripts import measure_peaks, roofline
+from dpgo_ros_tpu_torch.utils.work import (
+    block_work,
+    bound,
+    edge_bytes,
+    rtr_flops,
+    solve_bytes,
+    tick_bytes,
+    tick_flops,
 )
 
 # tolerances: kernel vs plain fp32 on the card (sum orders differ, the
@@ -118,22 +147,6 @@ DEV = torch.device("cuda")
 # TOL_TICK_X of max |X|, the per-tick movement history within rel
 # TOL_TICK_MOVED (sum orders differ; the ticks are contractive RGD steps)
 TOL_TICK_X, TOL_TICK_MOVED = 1e-4, 1e-3
-# the card's peaks for the bound (H100 SXM: HBM3 rate, fp32 outside the
-# tensor cores)
-HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
-
-
-def require_cuda() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 def phase_build() -> None:
@@ -367,98 +380,6 @@ def phase_fixed_iterations() -> None:
     assert len(h64) == len(h32) == 20 and rel <= TOL_HIST
 
 
-def bound(nbytes: float, flops: float):
-    """(ms, "bytes" or "operations"): the least time the card could take
-    to move ``nbytes`` at its memory rate or do ``flops`` at its fp32 rate,
-    whichever is larger."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
-
-
-def edge_bytes(E: int, d: int) -> int:
-    """Bytes of ``E`` edges' operands read once: src/dst (int32), R, t,
-    κ_eff, τ_eff (fp32)."""
-    return E * (8 + 4 * d * d + 4 * d + 8)
-
-
-def block_work(prob: LiftedProblem, mask: np.ndarray):
-    """(poses in the block, edges that touch it, separator poses: the poses
-    outside it that those edges reach) for a boolean (n,) pose mask."""
-    he = prob.host_edges
-    src, dst = np.asarray(he.src), np.asarray(he.dst)
-    touch = mask[src] | mask[dst]
-    ends = np.concatenate([src[touch], dst[touch]])
-    return int(mask.sum()), int(touch.sum()), np.unique(ends[~mask[ends]]).size
-
-
-def solve_bytes(prob: LiftedProblem, nk: int, Ek: int, ns: int,
-                stats: int = 0) -> int:
-    """One block solve's operands read once and outputs written once: the
-    block's poses and their P⁻¹, the separator poses, the block's edges;
-    the block's poses and the stats row (K1's 6 + 2R floats unless
-    ``stats`` says otherwise)."""
-    C, D = prob.r * (prob.d + 1), prob.d + 1
-    stats = stats or 6 + 2 * prob.num_robots
-    return 4 * (2 * nk * C + ns * C + nk * D * D + stats) + edge_bytes(Ek, prob.d)
-
-
-# Operation counts from the kernels' algebra (a multiply-add is 2): one
-# pass of the linear edge map with its pull-index gather, per edge and row
-# of r: residuals and both contribution rows, 4d² + 4d + 6, then 2 rows of
-# d + 1 adds; per pose: tangent projection 4rd², preconditioned projection
-# 2r(d+1)² + 4rd² + r(d+1), Newton–Schulz retraction 3rd + 20 (2rd² +
-# rd(2d+1)).
-def _edge_flops(E: int, r: int, d: int) -> float:
-    return E * r * (4 * d * d + 4 * d + 6 + 2 * (d + 1))
-
-
-def _pose_flops(r: int, d: int):
-    C = r * (d + 1)
-    proj = 4 * r * d * d
-    prec = 2 * r * (d + 1) ** 2 + proj + C
-    retract = 3 * r * d + 20 * (2 * r * d * d + r * d * (2 * d + 1))
-    return proj, prec, retract, C
-
-
-def rtr_flops(n: int, E: int, r: int, d: int, tr: int, tcg: int) -> float:
-    """One RTR block solve with ``tr`` TR and ``tcg`` tCG iterations: the
-    initial gradient and norm; per TR iteration the tCG set-up, the model
-    decrease, the retraction of every pose, the trial gradient and the new
-    norm; per tCG iteration the Hessian edge pass and the pose passes."""
-    proj, prec, retract, C = _pose_flops(r, d)
-    ep = _edge_flops(E, r, d)
-    return (ep + n * (proj + 2 * C)
-            + tr * (ep + n * (3 * proj + prec + 13 * C + retract))
-            + tcg * (ep + n * (1.5 * proj + prec + 23 * C)))
-
-
-def tick_flops(prob: LiftedProblem, steps: int, precond: bool) -> float:
-    """One ASAPP tick: per robot and step, the edge pass over the edges
-    that touch its block and the step on its own poses; the movement."""
-    proj, prec, retract, C = _pose_flops(prob.r, prob.d)
-    he, rof = prob.host_edges, np.asarray(prob.robot_of_pose)
-    total = 0.0
-    for k in range(prob.num_robots):
-        Ek = int(np.sum((rof[he.src] == k) | (rof[he.dst] == k)))
-        nk = int(np.sum(rof == k))
-        per_pose = proj + C + retract + (prec + C if precond else 0)
-        total += steps * (_edge_flops(Ek, prob.r, prob.d) + nk * per_pose) + nk * 3 * C
-    return total
-
-
-def tick_bytes(prob: LiftedProblem, precond: bool) -> int:
-    """One tick's operands read once and outputs written once: every
-    robot's own poses from X and its separator poses from the ring slot
-    its delay selects, P⁻¹ (with the preconditioner), the delays, every
-    edge once; X_new and the movement."""
-    n, R, C = prob.n, prob.num_robots, prob.r * (prob.d + 1)
-    rof = np.asarray(prob.robot_of_pose)
-    stale = sum(block_work(prob, rof == k)[2] for k in range(R))
-    pinv = n * (prob.d + 1) ** 2 if precond else 0
-    return 4 * (2 * n * C + stale * C + pinv + 2 * R) + \
-        edge_bytes(prob.edges.num_edges, prob.d)
-
-
 def _time(fn, reps: int) -> float:
     """ms per call: CUDA events around `reps` calls after one warm-up."""
     fn()
@@ -517,15 +438,24 @@ GNC_PLANTED = 245  # 10 % of the world's 2,450 loop closures
 TOL_MODES_COST, MIN_MODE_AGREEMENT = 1e-4, 0.99
 
 
+def _zero_counts() -> None:
+    fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = fused_asapp.TICK_LAUNCHES = 0
+    hbm_rtr.LAUNCHES = peak_chains.LAUNCHES = peak_chains.CML_LAUNCHES = 0
+
+
+def _counts():
+    """{"k1": .., ..., "k6": ..}: every kernel's launches since the zeroing."""
+    return {"k1": fused_rtr.LAUNCHES, "k2": fused_rtr.RUN_LAUNCHES,
+            "k3": fused_asapp.TICK_LAUNCHES, "k4": hbm_rtr.LAUNCHES,
+            "k5": peak_chains.LAUNCHES, "k6": peak_chains.CML_LAUNCHES}
+
+
 def _counted_run(argv):
     """cli.run with every launch counter zeroed just before; returns
-    (summary, extras, {"k1": .., "k2": .., "k3": .., "k4": ..}), each
-    kernel's launches in the run."""
-    fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = fused_asapp.TICK_LAUNCHES = 0
-    hbm_rtr.LAUNCHES = 0
+    (summary, extras, counts), each kernel's launches in the run."""
+    _zero_counts()
     summary, extras = cli.run(argv)
-    return summary, extras, {"k1": fused_rtr.LAUNCHES, "k2": fused_rtr.RUN_LAUNCHES,
-                             "k3": fused_asapp.TICK_LAUNCHES, "k4": hbm_rtr.LAUNCHES}
+    return summary, extras, _counts()
 
 
 def _only(counts, **want):
@@ -1014,6 +944,97 @@ def phase_gate_sweep():
     return out
 
 
+# ---------------------------------------------------------------- K5, K6
+
+# name: (kernel wrapper, plain version, measure_peaks input, flops per
+# element and step)
+CHAINS = {
+    "peak_chain": (peak_chains.chain_fused, peak_chains.chain_ref,
+                   measure_peaks.K5_INPUT, peak_chains.CHAIN_FLOPS),
+    "peak_chain_cml": (peak_chains.chain_cml_fused, peak_chains.chain_cml_ref,
+                       measure_peaks.K6_INPUT, peak_chains.CML_FLOPS),
+}
+CHAIN_STEPS, CHAIN_TIMING_STEPS = (1, 7, 500, 2000), 2000
+# the roofline phase's chains: (shorter, longer) chained solves per timing
+# and slope estimates per budget (the full run: roofline.REPS, N_EST)
+ROOF_REPS, ROOF_N_EST = (1, 3), 3
+
+
+def phase_compare_chains():
+    """K5 and K6 against their plain versions on measure_peaks' inputs at
+    every CHAIN_STEPS trip count: bit-identical, since both take the same
+    operations in the same order without FMA contraction. Returns {name:
+    max abs error}."""
+    before = peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES
+    out = {}
+    for name, (fused, ref, inp, _) in CHAINS.items():
+        x = measure_peaks.slabs(*inp)
+        out[name] = 0.0
+        for n in CHAIN_STEPS:
+            k, p = fused(x, n), ref(x, n)
+            err = float((k - p).abs().max())
+            print(f"{name} {n} steps: bit-identical {torch.equal(k, p)}, max abs error "
+                  f"{err:.3g}, mean {float(k.double().mean()):.9g}", flush=True)
+            assert torch.isfinite(k).all() and torch.equal(k, p), (name, n)
+            out[name] = max(out[name], err)
+    n = len(CHAIN_STEPS)
+    assert (peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES) == (before[0] + n, before[1] + n)
+    peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES = before  # comparison launches
+    return out
+
+
+def phase_roofline():
+    """The roofline path on the sphere2500 stand-in with every counter
+    zeroed just before and read just after. Gates: both calibrations valid
+    and agreeing within (0.5, 2); the K1 and K4 forced sweeps ran 3·K tCG
+    iterations in every solve and their slopes are valid; K1, K4, K5 and K6
+    launched, K2 and K3 not. Returns (counts, K5 calibration, K6
+    calibration, row)."""
+    _zero_counts()
+    cal, cal2 = measure_peaks.measure_attainable(), measure_peaks.measure_cml()
+    ratio, agree = measure_peaks.agreement(cal, cal2)
+    row = roofline.problem_row("sphere2500", cal["fp32_attainable_flops"],
+                               ROOF_REPS, ROOF_N_EST, device=DEV)
+    counts = _counts()
+    for name, c in (("K5", cal), ("K6", cal2)):
+        print(f"roofline calibration {name}: valid {c['valid']}, "
+              f"{(c['fp32_attainable_flops'] or 0) / 1e12:.4f} TFLOP/s, slopes "
+              f"{c['slope_us_per_iter']} us per step, times {c['times_ms']} ms")
+    print(f"roofline: witness agreement {ratio}; launches {counts}")
+    for k in ("k1", "k4"):
+        print(f"roofline sphere2500 {k}: " + json.dumps(row[k]), flush=True)
+    assert cal["valid"] and cal2["valid"] and agree, (cal, cal2)
+    for k in ("k1", "k4"):
+        assert row[k]["tcg_exact"] and row[k]["slope_valid"], (k, row[k])
+    assert all(counts[k] > 0 for k in ("k1", "k4", "k5", "k6")), counts
+    _only(counts, **{k: counts[k] for k in ("k1", "k4", "k5", "k6")})
+    return counts, cal, cal2, row
+
+
+def phase_timing_chains():
+    """ms per launch of K5 and K6 and of their plain versions at
+    CHAIN_TIMING_STEPS steps on the same inputs; returns {name: (kernel ms,
+    plain ms, bound (ms, by), fp32 flop/s of the kernel)}."""
+    before = peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES
+    n, out = CHAIN_TIMING_STEPS, {}
+    for name, (fused, ref, inp, per_elem) in CHAINS.items():
+        x = measure_peaks.slabs(*inp)
+        k_ms = _time(lambda: fused(x, n), 10)
+        p_ms = _time(lambda: ref(x, n), 1)
+        k2_ms = _time(lambda: fused(x, n), 10)
+        km = min(k_ms, k2_ms)
+        elems = peak_chains.ROWS * peak_chains.LANES
+        flops = per_elem * peak_chains.NCHAIN * elems * n
+        nbytes = 4 * (peak_chains.NCHAIN + 1) * elems  # slabs read, sum written
+        bnd = bound(nbytes, flops)
+        out[name] = (km, p_ms, bnd, flops / (km * 1e-3))
+        print(f"timing {name} at {n} steps: kernel {k_ms:.4f} ms, {k2_ms:.4f} ms (second "
+              f"pass), {flops / (km * 1e-3) / 1e12:.4f} TFLOP/s; plain {p_ms:.3f} ms; "
+              f"bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes} B, {flops:.4g} flop)")
+    peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES = before  # timing launches
+    return out
+
+
 def _phase(name, fn, *args):
     t = time.time()
     out = fn(*args)
@@ -1029,8 +1050,8 @@ def _kernel(name, source, replaces, launches, err, ms, plain_ms, bnd, **more):
 
 
 def main() -> int:
-    require_cuda()
-    card = card_line()
+    measure_peaks.require_cuda("chip_smoke")
+    card = measure_peaks.card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -1056,6 +1077,9 @@ def main() -> int:
     _phase("async timing", phase_timing_async)
     *k4, k1_full_ms = _phase("K4 timing", phase_timing_window)
     gate = _phase("K4 vs K1 below the large world", phase_gate_sweep)
+    chain_err = _phase("K5/K6 vs plain", phase_compare_chains)
+    roof_counts, *cals, _ = _phase("roofline", phase_roofline)
+    chains = _phase("K5/K6 timing", phase_timing_chains)
     print(card)
     print(json.dumps({"kernels": [
         _kernel("rtr_block_solve", "dpgo_ros_tpu_torch/csrc/rtr_block.cu",
@@ -1069,6 +1093,13 @@ def main() -> int:
                 "dpgo_ros_tpu/ops/hbm_rtr.py:257", window_launches, window_err, *k4,
                 k1_full_width_ms=k1_full_ms,
                 k4_k1_ms_by_world={w: list(t) for w, t in gate.items()}),
+        *(_kernel(name, "dpgo_ros_tpu_torch/csrc/peak_chains.cu", replaces,
+                  roof_counts[k], chain_err[name], *chains[name][:3],
+                  steps=CHAIN_TIMING_STEPS, tflops=chains[name][3] / 1e12,
+                  calibrated_tflops=cal["fp32_attainable_flops"] / 1e12)
+          for name, k, replaces, cal in (
+              ("peak_chain", "k5", "scripts/measure_peaks.py:60", cals[0]),
+              ("peak_chain_cml", "k6", "scripts/measure_peaks.py:139", cals[1]))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,6 +8,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import importlib.util
+import sys
+from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -80,3 +84,19 @@ def noisy_lifted_gt(gt: np.ndarray, r: int, seed: int, noise: float = 0.05):
     Yl, _ = np.linalg.qr(rng.standard_normal((r, gt.shape[1])))
     X = np.einsum("rd,ndk->nrk", Yl, gt)
     return X + noise * rng.standard_normal(X.shape)
+
+
+def load_jax_script(name: str):
+    """The JAX package's ``scripts/<name>.py`` as a module, without the
+    persistent-cache settings it makes at import (they would move the test
+    worker's JAX cache) and without the sys.path entries it adds."""
+    import jax
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"jax_script_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    saved = list(sys.path)
+    with mock.patch.object(jax.config, "update"):
+        spec.loader.exec_module(mod)
+    sys.path[:] = saved
+    return mod
