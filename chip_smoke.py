@@ -10,14 +10,19 @@ Phases (any failure exits nonzero; nothing is caught):
   2. build the five kernel libraries, K1 (csrc/rtr_block.cu), K2
      (csrc/rtr_run.cu), K3 (csrc/asapp_tick.cu), K4 (csrc/rtr_window.cu)
      and K5 + K6 (csrc/peak_chains.cu), one nvcc per source started
-     together; print ptxas's report;
+     together; print ptxas's report, and the registers and stack of each
+     (d, r) instance of the cluster kernels K2 and K4;
   3. hold K1 against its plain PyTorch version on the card, on the
      2,500-pose 5-robot synthetic sphere (every robot mask and every
      Parallel colour union), on a 1,000-pose grid3d world (irregular loop
      closures) and on an SE(2) ring, from noisy states;
-  4. hold K2 against its plain version on the sphere (10 RoundRobin steps,
-     6 Parallel steps, a GNC exit on the cadence, 10 RGD steps) and on the
-     SE(2) ring;
+  4. hold K2, the cluster kernel that solves each step on its bank row's
+     window, against its plain version (full-width, the same function) on
+     the sphere (10 RoundRobin steps, 10 Uniform steps on a schedule passed
+     in, 6 Parallel steps on the colour classes' windows, a GNC exit on the
+     cadence, 10 RGD steps; r = 8 too) and on the SE(2) ring (r = 2 and 5,
+     d = 2): the same exit, steps and tCG iterations, and a second launch
+     bit-identical; print each case's cluster and shared memory;
   5. hold K3 against its plain version on the sphere from a noisy state:
      K = 3, 20 chained ticks with one fixed delay table, 1 or 2 steps per
      tick, with and without the preconditioner (X, movement, ring buffer);
@@ -41,12 +46,15 @@ Phases (any failure exits nonzero; nothing is caught):
      245 planted outliers) in both modes: 3 weight rounds, K2 launches ==
      rounds + 1 (fused), K4 launches == block updates (engine), the modes'
      accept/reject sets agree, outlier recall no worse than the JAX CLI's;
- 10. hold K4, the windowed block solve, against its plain version and
-     against K1 full-width under the robot's mask on the 50,000-pose
-     16-robot sphere from a noisy state, robots 0, 5, 10 and 15, banded and
-     with 1,000 extra loop closures between random pose pairs: the same TR
-     and tCG counts, X, f − f0 and gn within tolerance, every pose outside
-     the block bit-identical to the input;
+ 10. hold K4, the windowed block solve on a thread-block cluster, against
+     its plain version and against K1 full-width under the robot's mask on
+     the 50,000-pose 16-robot sphere from a noisy state, robots 0, 5, 10
+     and 15, banded and with 1,000 extra loop closures between random pose
+     pairs, and at r = 8 (whose slices do not fit in shared memory): the
+     same TR and tCG counts, X, f − f0 and gn within tolerance, every pose
+     outside the block bit-identical to the input, a second launch
+     bit-identical; the same against the plain version on the sphere (r =
+     5, 8) and the SE(2) ring (r = 2, 5; d = 2);
  11. drive the large-world main path (``--synthetic sphere --synthetic_n
      50000 --num_robots 16``, Odometry init, RoundRobin, at most 10
      sweeps) in engine mode with the counters zeroed just before: K4
@@ -63,6 +71,9 @@ Phases (any failure exits nonzero; nothing is caught):
  13. time K4 against K1 full-width per block solve below the large world:
      the dpgo_demo world, and worlds whose window is the whole world (1
      robot) or most of it (the measurement behind ``SEQUENTIAL_ON_WINDOWS``);
+     then K4 per solve (large and dpgo_demo worlds) and K2 per step with
+     the clusters' slices cut under several pose weights (the measurement
+     behind ``hbm_rtr.POSE_WORK``);
  14. hold K5 and K6, the calibration chains (csrc/peak_chains.cu), against
      their plain versions on measure_peaks' inputs at 1, 7, 500 and 2,000
      steps: bit-identical (max abs error 0);
@@ -81,10 +92,14 @@ and plain version, the bound — the larger of the bytes the call must move
 over the card's memory rate and its operations over the fp32 rate, counted
 over the poses and edges each block solve or robot step needs, with which
 of the two bounds it — and the library call's time, null: no single
-PyTorch call computes these functions; K3 also its whole tick's ms, K4
-also K1's full-width ms on the same blocks and phase 13's pairs; K5 and K6
-their ms at 2,000 steps, their rate and the calibration's), and the line
-before that the card's name and power limit. K1's launches are the
+PyTorch call computes these functions; K2 and K4 also their time in the
+one-block design before the clusters (PERF.md §6, same card model and
+power limit), their
+cluster, shared memory per CTA and ptxas registers and stack per (d, r)
+instance; K3 also its whole tick's ms, K4 also K1's full-width ms on the
+same blocks and phase 13's pairs; K5 and K6 their ms at 2,000 steps, their
+rate and the calibration's), and the line before that the card's name and
+power limit. K1's launches are the
 Parallel main path's, K4's the large world's, K5's and K6's the roofline
 path's.
 """
@@ -94,6 +109,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import sys
 import tempfile
 import time
@@ -143,15 +159,23 @@ TOL_F0, TOL_F, TOL_X, TOL_HIST = 1e-5, 1e-4, 1e-4, 2e-3
 TOL_RUN_X, TOL_RUN_REL, TOL_RUN_COST = 1e-3, 1e-3, 1e-4
 DEMO_PARAMS = RTRParams(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
 DEV = torch.device("cuda")
+# the Uniform K2 case's schedule, passed in (the CPU tests hold the rule's
+# own draw): no robot twice in a row, since a block solved again at once
+# starts at its optimum, where the tCG count follows fp32 sum order
+UNIFORM_SCHED = [3, 0, 4, 1, 0, 2, 4, 3, 1, 2]
+# ms per K2 step and per K4 solve of the one-block design the clusters
+# replaced (one 256-thread block; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W)
+ONE_BLOCK_K2_MS, ONE_BLOCK_K4_MS = 18.945, 7.672
 # K3 vs plain over 20 chained fp32 ticks: X and the ring buffer within
 # TOL_TICK_X of max |X|, the per-tick movement history within rel
 # TOL_TICK_MOVED (sum orders differ; the ticks are contractive RGD steps)
 TOL_TICK_X, TOL_TICK_MOVED = 1e-4, 1e-3
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     """Every kernel's library, one nvcc per source started together; the
-    ptxas register, stack and spill report of each."""
+    ptxas register, stack and spill report of each. Returns {K2's and K4's
+    source stem: ptxas_instances}."""
     t = time.time()
     built = fused_rtr.build_all()
     print(f"build: {', '.join(p.name for p, _ in built)} in "
@@ -160,6 +184,41 @@ def phase_build() -> None:
         for line in log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill", "stack")):
                 print(f"  ptxas {path.stem}: " + line.strip())
+    out = {}
+    for src, (path, log) in zip(fused_rtr.ALL_SOURCES, built):
+        if src in (fused_rtr.RUN_SOURCE, fused_rtr.WINDOW_SOURCE):
+            out[src.stem] = ptxas_instances(log)
+            print(f"ptxas {src.stem} per (d, r) instance: "
+                  + json.dumps(out[src.stem]), flush=True)
+            assert len(out[src.stem]) == 16, out[src.stem]
+    return out
+
+
+def ptxas_instances(log: str) -> dict:
+    """{"d3r5": {"stack": bytes, "registers": n}, ...}: each template
+    instance of a cluster kernel in a ptxas report."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?ILi(\d)ELi(\d)E", line)
+        if m:
+            cur = out.setdefault(f"d{m[1]}r{m[2]}", {})
+            continue
+        if cur is not None:
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("registers", r"Used (\d+) registers")):
+                m = re.search(pat, line)
+                if m:
+                    cur[key] = int(m[1])
+    return out
+
+
+def launch_shape(w: hbm_rtr.Windows, d: int, r: int) -> dict:
+    """The cluster one launch on the windows ``w`` takes: CTAs, the largest
+    slice and the dynamic shared memory of each CTA (0 when the owner-only
+    vectors live in the workspace)."""
+    lib = fused_rtr._library(fused_rtr.WINDOW_SOURCE)
+    return {"cluster": w.cluster, "threads": 256, "slice_max": w.slice_max,
+            "smem_bytes_per_cta": int(lib.dpgo_rtr_window_smem_bytes(d, r, w.slice_max))}
 
 
 def se2_world(n: int, num_robots: int, seed: int):
@@ -259,49 +318,68 @@ def phase_compare() -> float:
 
 
 def run_cases():
-    """(name, prob, X, bank, sched, Pinv, adj, offsets, run) for every K2
-    comparison case: the 2,500-pose 5-robot sphere from a noisy state
-    (RoundRobin, Parallel, a GNC exit on the cadence, RGD steps) and the
-    SE(2) ring."""
+    """(name, prob, X, bank, sched, Pinv, adj, offsets, windows, run) for
+    every K2 comparison case: the 2,500-pose 5-robot sphere from a noisy
+    state (RoundRobin, Uniform on UNIFORM_SCHED, Parallel on the colour
+    classes' windows, a GNC exit on the cadence, RGD steps; RoundRobin at
+    r = 8) and the SE(2) ring (d = 2: r = 5 RoundRobin and Parallel, r = 2
+    RoundRobin)."""
     worlds = [("sphere2500", *generate_world("sphere", n=2500, num_robots=5, seed=1)[:2]),
               ("se2-ring", *se2_world(1200, 4, seed=3))]
     base = dict(last_wu=0, gnc_pending=False, tol=0.0, gnc=False, inner=1,
                 inner_tol=None, record=True, rgd_stepsize=0.0)
     for wi, (name, data, gt) in enumerate(worlds):
-        prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
-        X = noisy_state(prob, gt, seed=200 + wi)
-        cases = [("roundrobin", UpdateRule.ROUND_ROBIN, 10, {}),
-                 ("parallel", UpdateRule.PARALLEL, 6, {}),
-                 ("gnc-exit", UpdateRule.ROUND_ROBIN, 10,
+        cases = [(5, "roundrobin", UpdateRule.ROUND_ROBIN, 10, {}),
+                 (5, "uniform", UpdateRule.UNIFORM, 10, {}),
+                 (5, "parallel", UpdateRule.PARALLEL, 6, {}),
+                 (5, "gnc-exit", UpdateRule.ROUND_ROBIN, 10,
                   dict(gnc=True, gnc_pending=True, inner=3)),
-                 ("rgd", UpdateRule.ROUND_ROBIN, 10, dict(rgd_stepsize=0.2))]
+                 (5, "rgd", UpdateRule.ROUND_ROBIN, 10, dict(rgd_stepsize=0.2)),
+                 (8, "roundrobin", UpdateRule.ROUND_ROBIN, 5, {})]
         if name == "se2-ring":
-            cases = [("roundrobin", UpdateRule.ROUND_ROBIN, 4, {})]
-        for cname, rule, steps, kw in cases:
-            eng = RBCDEngine(prob, AgentConfig(update_rule=rule, dtype="float32"))
-            bank, sched = eng.mask_bank_and_schedule(steps)
+            cases = [(5, "roundrobin", UpdateRule.ROUND_ROBIN, 4, {}),
+                     (5, "parallel", UpdateRule.PARALLEL, 4, {}),
+                     (2, "roundrobin", UpdateRule.ROUND_ROBIN, 4, {})]
+        probs = {}
+        for r, cname, rule, steps, kw in cases:
+            if r not in probs:
+                prob = LiftedProblem.from_data(data, r=r, dtype=torch.float32, device=DEV)
+                probs[r] = (prob, noisy_state(prob, gt, seed=200 + wi))
+            prob, X = probs[r]
+            eng = RBCDEngine(prob, AgentConfig(num_robots=prob.num_robots,
+                                               update_rule=rule, dtype="float32"))
+            sched_in = UNIFORM_SCHED if rule == UpdateRule.UNIFORM else None
+            bank, sched = eng.mask_bank_and_schedule(steps, sched_in)
             run = dict(base, it0=0, it_cap=steps, **kw)
-            yield (f"{name}/{cname}", prob, X, bank, sched,
-                   eng._solver_cache(prob.edges), eng._adjf, eng._offsets, run)
+            yield (f"{name}/r{r}/{cname}", prob, X, bank, sched,
+                   eng._solver_cache(prob.edges), eng._adjf, eng._offsets,
+                   eng._row_windows, run)
 
 
-def _run_pair(prob, X, bank, sched, Pinv, adj, offs, run, fn):
+def _run_pair(prob, X, bank, sched, Pinv, adj, offs, windows, run, fn):
     rel0 = torch.full((prob.num_robots,), float("inf"), device=DEV)
     cost0 = quadratic.cost(X, prob.edges).reshape(1)
     kw = dict(adj=adj, rel0=rel0, cost0=cost0, offsets=offs, **run)
+    if fn is fused_rtr.rtr_run_fused:
+        kw["windows"] = windows
     return fn(X, bank, sched, Pinv, prob.edges, DEMO_PARAMS, **kw)
 
 
-def phase_compare_run() -> float:
-    """K2 vs its plain version on every run case; returns the max abs X
-    error. Gates: the same exit iteration and steps, X within TOL_RUN_X of
-    max |X|, rel change and history rows within rel TOL_RUN_REL, cost
-    within rel TOL_RUN_COST."""
-    worst = 0.0
-    for name, prob, X, bank, sched, Pinv, adj, offs, run in run_cases():
-        args = (prob, X, bank, sched, Pinv, adj, offs, run)
+def phase_compare_run():
+    """K2 vs its plain version on every run case; returns (the max abs X
+    error, {case: launch shape}). Gates: the same exit iteration, steps
+    and tCG iterations, X within TOL_RUN_X of max |X|, rel change and
+    history rows within rel TOL_RUN_REL, cost within rel TOL_RUN_COST (the
+    kernel carries it by the windows' f − f0, the plain version reads the
+    full-width f), a second launch bit-identical."""
+    worst, shapes = 0.0, {}
+    for name, prob, X, bank, sched, Pinv, adj, offs, w, run in run_cases():
+        args = (prob, X, bank, sched, Pinv, adj, offs, w, run)
         Xk, relk, sk, hk = _run_pair(*args, fused_rtr.rtr_run_fused)
+        Xk2, relk2, sk2, hk2 = _run_pair(*args, fused_rtr.rtr_run_fused)
         Xp, relp, sp, hp = _run_pair(*args, fused_rtr.rtr_run_fused_ref)
+        same = (torch.equal(Xk, Xk2) and torch.equal(sk, sk2) and torch.equal(relk, relk2)
+                and torch.equal(hk.nan_to_num(), hk2.nan_to_num()))
         sk, sp = sk.double().cpu().numpy(), sp.double().cpu().numpy()
         err = float((Xk - Xp).abs().max())
         xrel = err / float(Xp.abs().max())
@@ -309,17 +387,21 @@ def phase_compare_run() -> float:
         hrel = _rel(hk, hp)
         crel = abs(sk[0] - sp[0]) / abs(sp[0])
         worst = max(worst, err)
+        shapes[name] = launch_shape(w, prob.d, prob.r)
         print(f"run {name}: it {int(sk[1])}/{int(sp[1])} steps {int(sk[2])}/"
               f"{int(sp[2])} tCG {int(sk[3])}/{int(sp[3])} cost {sk[0]:.7g} rel "
               f"{crel:.2e} X rel {xrel:.2e} (max abs {err:.2e}) rel-change rel "
-              f"{rrel:.2e} history rel {hrel:.2e}", flush=True)
+              f"{rrel:.2e} history rel {hrel:.2e}; repeat bit-identical {same}; "
+              f"schedule {sched.tolist()}; {json.dumps(shapes[name])}", flush=True)
         assert np.isfinite(sk).all() and torch.isfinite(Xk).all(), name
         assert int(sk[1]) == int(sp[1]) and int(sk[2]) == int(sp[2]), name
+        assert int(sk[3]) == int(sp[3]), f"{name}: tCG iterations"
         assert xrel <= TOL_RUN_X and rrel <= TOL_RUN_REL and hrel <= TOL_RUN_REL, name
         assert crel <= TOL_RUN_COST, name
+        assert same, f"{name}: a second launch differs"
         if run["gnc"]:
             assert int(sk[1]) == run["inner"], f"{name}: GNC exit at {int(sk[1])}"
-    return worst
+    return worst, shapes
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -349,6 +431,10 @@ def phase_main_path(tmp: str, rule: str):
     kernel = "k1" if rule == "Parallel" else "k4"
     assert extras["block_updates"] > 0
     _only(counts, **{kernel: extras["block_updates"]})
+    if rule == "RoundRobin":
+        assert extras["block_updates"] == DEMO_UPDATES, extras["block_updates"]
+        assert abs(summary["final_cost"] - ONE_BLOCK_DEMO_COST) <= (
+            TOL_MODES_COST * ONE_BLOCK_DEMO_COST), summary["final_cost"]
     assert summary["final_cost"] < extras["initial_cost"]
     assert math.isfinite(summary["ate_vs_ground_truth"])
     for suffix in ["_global.g2o", ".html"] + [f"_robot{k}.tum" for k in range(5)]:
@@ -436,6 +522,9 @@ GNC_DEMO = ["--demo", "dpgo_gnc_demo", "--synthetic", "sphere", "--synthetic_n",
 JAX_GNC_RECALL = 1.0
 GNC_PLANTED = 245  # 10 % of the world's 2,450 loop closures
 TOL_MODES_COST, MIN_MODE_AGREEMENT = 1e-4, 0.99
+# the dpgo_demo main path on the one-block kernels (engine mode, PERF.md
+# §6): its updates and final cost; both modes must keep them
+DEMO_UPDATES, ONE_BLOCK_DEMO_COST = 66, 12448.797
 
 
 def _zero_counts() -> None:
@@ -471,6 +560,9 @@ def phase_fused_main_path(engine_summary):
     print("fused main path timing_sec " + json.dumps(extras["timing_sec"]))
     print(f"fused main path: launches {counts}")
     _only(counts, k2=1)
+    assert summary["iterations"] == DEMO_UPDATES, summary["iterations"]
+    assert abs(summary["final_cost"] - ONE_BLOCK_DEMO_COST) <= (
+        TOL_MODES_COST * ONE_BLOCK_DEMO_COST), summary["final_cost"]
     assert abs(summary["iterations"] - engine_summary["iterations"]) <= 1
     assert abs(summary["final_cost"] - engine_summary["final_cost"]) <= (
         TOL_MODES_COST * abs(engine_summary["final_cost"]))
@@ -512,11 +604,11 @@ def phase_gnc():
 def phase_timing_run():
     """K2 ms per step and its plain version's, on the 10-step RoundRobin
     sphere case of phase 4 (same inputs); returns (kernel ms, plain ms)."""
-    case = next(c for c in run_cases() if c[0] == "sphere2500/roundrobin")
-    _, prob, X, bank, sched, Pinv, adj, offs, run = case
+    case = next(c for c in run_cases() if c[0] == "sphere2500/r5/roundrobin")
+    _, prob, X, bank, sched, Pinv, adj, offs, w, run = case
     steps = run["it_cap"]
     launches_before = fused_rtr.RUN_LAUNCHES
-    go = lambda fn: (lambda: _run_pair(prob, X, bank, sched, Pinv, adj, offs, run, fn))
+    go = lambda fn: (lambda: _run_pair(prob, X, bank, sched, Pinv, adj, offs, w, run, fn))
     k_ms = _time(go(fused_rtr.rtr_run_fused), 3) / steps
     p_ms = _time(go(fused_rtr.rtr_run_fused_ref), 1) / steps
     k2_ms = _time(go(fused_rtr.rtr_run_fused), 3) / steps
@@ -537,7 +629,9 @@ def phase_timing_run():
               + edge_bytes(prob.edges.num_edges, d)) / steps
     bnd = bound(nbytes, flops)
     print(f"timing per step (sphere2500, 10 RoundRobin steps, {tcg} tCG): K2 "
-          f"{k_ms:.3f} ms, {k2_ms:.3f} ms (second pass), plain {p_ms:.3f} ms; "
+          f"{k_ms:.4f} ms, {k2_ms:.4f} ms (second pass), "
+          f"{min(k_ms, k2_ms) * steps / tcg:.4f} ms per tCG iteration (one block: "
+          f"{ONE_BLOCK_K2_MS} ms per step); plain {p_ms:.3f} ms; "
           f"bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes:.0f} B, {flops:.4g} flop)")
     return min(k_ms, k2_ms), p_ms, bnd
 
@@ -748,20 +842,39 @@ _large = {}
 
 
 def large_cases():
-    """(name, prob, X, Pinv, windows) of the 50,000-pose 16-robot sphere
-    from a noisy state, banded and with LARGE_LOOPS loop closures between
+    """(name, prob, X, Pinv, windows, robots) of the 50,000-pose 16-robot
+    sphere from a noisy state, banded (r = 5 and r = 8, whose slices do
+    not fit in shared memory) and with LARGE_LOOPS loop closures between
     random pose pairs (built once)."""
     if not _large:
         data, gt, _ = generate_world("sphere", n=LARGE_N, num_robots=LARGE_ROBOTS, seed=0)
-        worlds = [("sphere50k", data),
-                  ("sphere50k+loops", add_random_loop_closures(data, gt, LARGE_LOOPS, seed=9))]
-        for wi, (name, d) in enumerate(worlds):
-            prob = LiftedProblem.from_data(d, r=5, dtype=torch.float32, device=DEV)
+        worlds = [("sphere50k", data, 5, K4_ROBOTS),
+                  ("sphere50k+loops",
+                   add_random_loop_closures(data, gt, LARGE_LOOPS, seed=9), 5, K4_ROBOTS),
+                  ("sphere50k/r8", data, 8, (0, 15))]
+        for wi, (name, d, r, robots) in enumerate(worlds):
+            prob = LiftedProblem.from_data(d, r=r, dtype=torch.float32, device=DEV)
             Pinv = quadratic.precond_inverse(
                 quadratic.precond_blocks(prob.edges, prob.n)).contiguous()
             _large[name] = (name, prob, noisy_state(prob, gt, seed=400 + wi), Pinv,
-                            hbm_rtr.prepare_windows(prob))
+                            hbm_rtr.prepare_windows(prob), robots)
     return list(_large.values())
+
+
+def rank_cases():
+    """(name, prob, X, Pinv, windows, robots) below the large world: the
+    2,500-pose 5-robot sphere at r = 5 and 8 (d = 3) and the 1,200-pose
+    SE(2) ring at r = 2 and 5 (d = 2), from noisy states."""
+    worlds = [("sphere2500", *generate_world("sphere", n=2500, num_robots=5, seed=1)[:2],
+               (5, 8), (0, 2, 4)),
+              ("se2-ring", *se2_world(1200, 4, seed=3), (2, 5), (0, 3))]
+    for name, data, gt, ranks, robots in worlds:
+        for r in ranks:
+            prob = LiftedProblem.from_data(data, r=r, dtype=torch.float32, device=DEV)
+            Pinv = quadratic.precond_inverse(
+                quadratic.precond_blocks(prob.edges, prob.n)).contiguous()
+            yield (f"{name}/r{r}", prob, noisy_state(prob, gt, seed=450 + r), Pinv,
+                   hbm_rtr.prepare_windows(prob), robots)
 
 
 def _df_rel(a, b) -> float:
@@ -769,19 +882,26 @@ def _df_rel(a, b) -> float:
     return abs((a[1] - a[0]) - (b[1] - b[0])) / abs(b[1] - b[0])
 
 
-def phase_compare_window() -> float:
+def phase_compare_window():
     """K4 vs its plain version and vs K1 full-width under the robot's mask
-    on every large case; returns the max abs X error against the plain
-    version. Gates: the same TR and tCG counts, X within TOL_K4_X of max
-    |X|, f − f0 within rel TOL_K4_DF (plain) or TOL_K4_K1 (K1, with gn),
-    every pose outside the block bit-identical to the input."""
-    worst = 0.0
+    on every large and rank case; returns (the max abs X error against the
+    plain version, {case: launch shape}). Gates: the same TR and tCG
+    counts, X within TOL_K4_X of max |X|, f − f0 within rel TOL_K4_DF
+    (plain) or TOL_K4_K1 (K1, with gn), every pose outside the block
+    bit-identical to the input, a second launch bit-identical."""
+    worst, shapes, launches = 0.0, {}, 0
     before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
-    for name, prob, X, Pinv, w in large_cases():
-        for k in K4_ROBOTS:
+    for name, prob, X, Pinv, w, robots in [*large_cases(), *rank_cases()]:
+        shapes[name] = launch_shape(w, prob.d, prob.r)
+        print(f"window {name}: {w.max_poses} poses and {w.max_edges} edges at most; "
+              + json.dumps(shapes[name]), flush=True)
+        for k in robots:
             mask = prob.block_mask(k)
             out = mask[:, 0, 0] == 0
             Xk, sk = hbm_rtr.rtr_solve_hbm(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
+            Xk2, sk2 = hbm_rtr.rtr_solve_hbm(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
+            launches += 2
+            same = torch.equal(Xk, Xk2) and torch.equal(sk, sk2)
             Xp, sp = hbm_rtr.rtr_solve_hbm_ref(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
             X1, s1 = fused_rtr.rtr_solve_fused(X, mask, Pinv, prob.edges, DEMO_PARAMS)
             X1 = torch.where(mask > 0, X1, X)
@@ -795,7 +915,7 @@ def phase_compare_window() -> float:
                   f"tCG {int(sk[5])}/{int(sp[5])}/{int(s1[5])} (K4/plain/K1) f-f0 "
                   f"{sk[1] - sk[0]:.7g} rel {dfp:.2e} / K1 {df1:.2e}; X rel "
                   f"{err / scale:.2e} / K1 {err1 / scale:.2e}; gn {sk[3]:.5g} K1 rel "
-                  f"{gn1:.2e}; moved {sk[6]:.5g}", flush=True)
+                  f"{gn1:.2e}; moved {sk[6]:.5g}; repeat bit-identical {same}", flush=True)
             assert np.isfinite(sk).all() and torch.isfinite(Xk).all(), name
             assert int(sk[4]) == int(sp[4]) == int(s1[4]), f"{name}/{k}: TR iterations"
             assert int(sk[5]) == int(sp[5]) == int(s1[5]), f"{name}/{k}: tCG iterations"
@@ -803,9 +923,10 @@ def phase_compare_window() -> float:
             assert err1 <= TOL_K4_X * scale, f"{name}/{k}: X vs K1"
             assert df1 <= TOL_K4_K1 and gn1 <= TOL_K4_K1, f"{name}/{k}: vs K1"
             assert torch.equal(Xk[out], X[out]) and torch.equal(Xp[out], X[out]), name
-    assert hbm_rtr.LAUNCHES == before[0] + len(large_cases()) * len(K4_ROBOTS)
+            assert same, f"{name}/{k}: a second launch differs"
+    assert hbm_rtr.LAUNCHES == before[0] + launches
     hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # comparison launches
-    return worst
+    return worst, shapes
 
 
 def phase_large_main_path(tmp: str):
@@ -868,7 +989,7 @@ def phase_timing_window():
     full-width per solve on K4_ROBOTS, the plain version per solve over the
     16 blocks, same inputs; returns (K4 ms, plain ms, bound (ms, by), K1
     full-width ms)."""
-    _, prob, X, Pinv, w = large_cases()[0]
+    _, prob, X, Pinv, w, _ = large_cases()[0]
     before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
     robots = range(LARGE_ROBOTS)
     masks = {k: prob.block_mask(k) for k in K4_ROBOTS}
@@ -895,8 +1016,8 @@ def phase_timing_window():
     bnd = bound(nbytes, flops)
     km = min(k_ms, k2_ms)
     print(f"timing per solve (sphere50k, 16 robot blocks, tCG/solve {tcg}): K4 "
-          f"{k_ms:.3f} ms, {k2_ms:.3f} ms (second pass), {km / np.mean(tcg):.4f} ms "
-          f"per tCG iteration; K1 full-width {k1_ms:.3f} ms on robots {K4_ROBOTS} "
+          f"{k_ms:.4f} ms, {k2_ms:.4f} ms (second pass), {km / np.mean(tcg):.4f} ms "
+          f"per tCG iteration (one block: {ONE_BLOCK_K4_MS} ms per solve); K1 full-width {k1_ms:.3f} ms on robots {K4_ROBOTS} "
           f"(tCG {tcg1}, {k1_ms / np.mean(tcg1):.4f} ms per tCG iteration); plain "
           f"{p_ms:.3f} ms; bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes:.0f} B, "
           f"{flops:.4g} flop; per block: poses, edges, separator poses "
@@ -941,6 +1062,41 @@ def phase_gate_sweep():
               f"{tcg4} / {tcg1}", flush=True)
         assert tcg4 == tcg1, name
     hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # timing launches
+    return out
+
+
+# the slice weights swept: a pose's pose-local work in incident edges
+# (hbm_rtr.POSE_WORK); 128 cuts the 50k windows nearly by pose count
+SLICE_WEIGHTS = (2, 8, 32, 128)
+
+
+def phase_slice_sweep():
+    """K4 ms per solve (the 16 blocks of the banded large case, the 5 of the
+    dpgo_demo world) and K2 ms per step (10 RoundRobin steps on the
+    dpgo_demo world) with the windows' slices cut under each
+    SLICE_WEIGHTS value (the measurement behind ``hbm_rtr.POSE_WORK``);
+    returns {weight: (K4 50k ms, K4 2,500 ms, K2 ms)}."""
+    before = hbm_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES
+    _, p50, X50, P50, _, _ = large_cases()[0]
+    run = next(c for c in run_cases() if c[0] == "sphere2500/r5/roundrobin")
+    _, p25, X25, bank, sched, P25, adj, offs, _, rc = run
+    out = {}
+    for wt in SLICE_WEIGHTS:
+        with mock.patch.object(hbm_rtr, "POSE_WORK", wt):
+            w50, w25 = hbm_rtr.prepare_windows(p50), hbm_rtr.prepare_windows(p25)
+        k4 = lambda prob, X, Pinv, w: (lambda: [
+            hbm_rtr.rtr_solve_hbm(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
+            for k in range(prob.num_robots)])
+        t50 = min(_time(k4(p50, X50, P50, w50), 3), _time(k4(p50, X50, P50, w50), 3))
+        t25 = min(_time(k4(p25, X25, P25, w25), 3), _time(k4(p25, X25, P25, w25), 3))
+        k2 = lambda: _run_pair(p25, X25, bank, sched, P25, adj, offs, w25, rc,
+                               fused_rtr.rtr_run_fused)
+        t2 = min(_time(k2, 3), _time(k2, 3)) / rc["it_cap"]
+        out[wt] = (t50 / p50.num_robots, t25 / p25.num_robots, t2)
+        print(f"slices at pose work {wt}: K4 {out[wt][0]:.4f} ms per 50k solve (largest "
+              f"slice {w50.slice_max}), {out[wt][1]:.4f} ms per 2,500-pose solve "
+              f"(largest slice {w25.slice_max}); K2 {t2:.4f} ms per step", flush=True)
+    hbm_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES = before  # timing launches
     return out
 
 
@@ -1055,11 +1211,11 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    _phase("build", phase_build)
+    ptxas = _phase("build", phase_build)
     max_err = _phase("K1 vs plain", phase_compare)
-    run_err = _phase("K2 vs plain", phase_compare_run)
+    run_err, run_shapes = _phase("K2 vs plain", phase_compare_run)
     tick_err = _phase("K3 vs plain", phase_compare_tick)
-    window_err = _phase("K4 vs plain and K1", phase_compare_window)
+    window_err, window_shapes = _phase("K4 vs plain and K1", phase_compare_window)
     with tempfile.TemporaryDirectory() as tmp:
         _, engine_summary = _phase("engine main path", phase_main_path, tmp, "RoundRobin")
         launches, _ = _phase("Parallel main path", phase_main_path, tmp, "Parallel")
@@ -1077,6 +1233,7 @@ def main() -> int:
     _phase("async timing", phase_timing_async)
     *k4, k1_full_ms = _phase("K4 timing", phase_timing_window)
     gate = _phase("K4 vs K1 below the large world", phase_gate_sweep)
+    slices = _phase("slice weights", phase_slice_sweep)
     chain_err = _phase("K5/K6 vs plain", phase_compare_chains)
     roof_counts, *cals, _ = _phase("roofline", phase_roofline)
     chains = _phase("K5/K6 timing", phase_timing_chains)
@@ -1085,13 +1242,18 @@ def main() -> int:
         _kernel("rtr_block_solve", "dpgo_ros_tpu_torch/csrc/rtr_block.cu",
                 "dpgo_ros_tpu/ops/fused_rtr.py:1092", launches, max_err, *k1),
         _kernel("rtr_run_fused", "dpgo_ros_tpu_torch/csrc/rtr_run.cu",
-                "dpgo_ros_tpu/ops/fused_rtr.py:1458", run_launches, run_err, *k2),
+                "dpgo_ros_tpu/ops/fused_rtr.py:1458", run_launches, run_err, *k2,
+                one_block_ms=ONE_BLOCK_K2_MS, launch_shapes=run_shapes,
+                ptxas=ptxas[fused_rtr.RUN_SOURCE.stem]),
         _kernel("asapp_tick_fused", "dpgo_ros_tpu_torch/csrc/asapp_tick.cu",
                 "dpgo_ros_tpu/ops/fused_asapp.py:200", tick_launches, tick_err, *k3,
                 tick_ms=tick_ms),
         _kernel("rtr_window_solve", "dpgo_ros_tpu_torch/csrc/rtr_window.cu",
                 "dpgo_ros_tpu/ops/hbm_rtr.py:257", window_launches, window_err, *k4,
+                one_block_ms=ONE_BLOCK_K4_MS, launch_shapes=window_shapes,
+                ptxas=ptxas[fused_rtr.WINDOW_SOURCE.stem],
                 k1_full_width_ms=k1_full_ms,
+                ms_by_slice_weight={str(k): list(v) for k, v in slices.items()},
                 k4_k1_ms_by_world={w: list(t) for w, t in gate.items()}),
         *(_kernel(name, "dpgo_ros_tpu_torch/csrc/peak_chains.cu", replaces,
                   roof_counts[k], chain_err[name], *chains[name][:3],

@@ -15,11 +15,14 @@ Demo presets mirror the reference launch files:
   K = max(3, ``--max_delayed_iterations``) (``launch/asapp_demo.launch``;
   sphere2500 unless another source is given).
 
+``--update_rule`` is Uniform (JAX's default: each update's robot drawn
+from a generator seeded with ``--seed``), RoundRobin or Parallel.
 ``--mode engine`` runs the host-driven loop, one launch of a CUDA
-block-solve kernel per block update: the windowed solve (K4) for
-RoundRobin, the full-width solve (K1) for Parallel; ``--mode fused`` runs
-one launch of the multi-step kernel (K2) per stretch between GNC weight
-rounds (one launch in all for an L2 run); ``--mode async`` (or ``--asynchronous true``
+block-solve kernel per block update: the windowed solve (K4) for Uniform
+and RoundRobin, the full-width solve (K1) for Parallel; ``--mode fused``
+runs one launch of the multi-step kernel (K2, each step on its robot's or
+colour class's window) per stretch between GNC weight rounds (one launch
+in all for an L2 run); ``--mode async`` (or ``--asynchronous true``
 in engine mode) runs the ASAPP ticks, one launch of the tick kernel (K3)
 per tick. On ``--device cpu`` all run the kernels' plain versions.
 
@@ -81,6 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic_outlier_ratio", type=float, default=0.0,
                    help="share of the synthetic world's loop closures "
                         "replaced by gross outliers (exact labels)")
+    p.add_argument("--synthetic_rot_noise", type=float, default=0.01,
+                   help="rotation noise (rad) of the synthetic measurements")
+    p.add_argument("--synthetic_trans_noise", type=float, default=0.05,
+                   help="translation noise of the synthetic measurements")
     p.add_argument("--mode", choices=["engine", "fused", "async"], default="engine",
                    help="engine: one block-solve launch per update; fused: "
                         "one multi-step launch per GNC stretch; async: one "
@@ -92,13 +99,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
     p.add_argument("--num_robots", type=int, default=1)
+    p.add_argument("--partition_balance", choices=["poses", "work"], default="poses",
+                   help="contiguous partition cut rule: 'poses' = the "
+                        "reference's equal-pose-count blocks; 'work' = "
+                        "balance poses + owned edges")
+    p.add_argument("--dimension", type=int, default=3)
+    p.add_argument("--relaxation_rank", type=int, default=5)
     p.add_argument("--RTR_iterations", type=int, default=3)
     p.add_argument("--RTR_tCG_iterations", type=int, default=50)
     p.add_argument("--RTR_gradnorm_tol", type=float, default=1e-2)
     p.add_argument("--local_initialization_method",
                    choices=["Odometry", "Chordal", "GNC_TLS"], default="Odometry")
-    p.add_argument("--update_rule", choices=["RoundRobin", "Parallel"],
-                   default="RoundRobin")
+    p.add_argument("--update_rule", choices=["Uniform", "RoundRobin", "Parallel"],
+                   default="Uniform")
+    p.add_argument("--multirobot_initialization", type=_bool, default=True,
+                   help="align the robots' local trajectories into one frame "
+                        "through their shared loop closures")
     p.add_argument("--asynchronous", type=_bool, default=False)
     p.add_argument("--asynchronous_rate", type=float, default=10.0,
                    help="local RGD loop rate in Hz; max(1, round(rate/100)) "
@@ -136,6 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--robust_init_min_inliers", type=int, default=5)
     p.add_argument("--max_iteration_number", type=int, default=1000)
     p.add_argument("--relative_change_tolerance", type=float, default=0.1)
+    p.add_argument("--visualize_loop_closures", type=_bool, default=False,
+                   help="draw the loop closures, coloured by final weight, in "
+                        "the --output HTML view")
     p.add_argument("--seed", type=int, default=42)
     return p
 
@@ -177,6 +196,8 @@ def apply_demo(a, parser) -> None:
             local_initialization_method="Odometry",
             relative_change_tolerance=0.2,
             RTR_gradnorm_tol=0.5,
+            # reference dpgo_gnc_demo.launch:44 draws GNC-coloured loop markers
+            visualize_loop_closures=True,
         )
     else:
         return
@@ -195,6 +216,10 @@ def args_to_config(a):
 
     return AgentConfig(
         num_robots=a.num_robots,
+        dimension=a.dimension,
+        relaxation_rank=a.relaxation_rank,
+        multirobot_initialization=a.multirobot_initialization,
+        visualize_loop_closures=a.visualize_loop_closures,
         robust_cost_type=RobustCostType(a.robust_cost_type),
         GNC_use_probability=a.GNC_use_probability,
         GNC_quantile=a.GNC_quantile,
@@ -242,16 +267,19 @@ def load_data(a):
             kw = dict(grid_shape=(side, side, side))
         return generate_world(
             a.synthetic, num_robots=a.num_robots, seed=a.seed,
-            outlier_ratio=a.synthetic_outlier_ratio, **kw
+            rot_noise=a.synthetic_rot_noise, trans_noise=a.synthetic_trans_noise,
+            outlier_ratio=a.synthetic_outlier_ratio, balance=a.partition_balance,
+            **kw
         )
     if a.g2o:
         from dpgo_ros_tpu_torch.io.partition import partition_g2o
 
-        return partition_g2o(a.g2o, a.num_robots), None, None
+        return partition_g2o(a.g2o, a.num_robots, balance=a.partition_balance), None, None
     if a.dataset:
         from dpgo_ros_tpu_torch.io.datasets import load_g2o_dataset
 
-        return load_g2o_dataset(a.dataset, num_robots=a.num_robots), None, None
+        return load_g2o_dataset(a.dataset, num_robots=a.num_robots,
+                                balance=a.partition_balance), None, None
     if a.demo == "dpgo_gnc_demo":
         from dpgo_ros_tpu_torch.io.datasets import load_tunnels
 
@@ -337,7 +365,8 @@ def run(argv=None) -> Tuple[Dict, Dict]:
     if a.output:
         export.export_solution(
             a.output, out.T, data.num_poses, data.measurements,
-            out.weights[: len(data.measurements)], show_loops=False,
+            out.weights[: len(data.measurements)],
+            show_loops=a.visualize_loop_closures,
         )
         print(f"wrote {a.output}_global.g2o and per-robot TUM files",
               file=sys.stderr)

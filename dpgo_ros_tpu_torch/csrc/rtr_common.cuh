@@ -1,9 +1,10 @@
-// Device code shared by the hand-written Hopper kernels of the solver: K1
-// (rtr_block.cu, one masked block solve per launch), K2 (rtr_run.cu, many
-// solver steps per launch) and K3 (asapp_tick.cu, one asynchronous ASAPP
-// tick per launch). K1 and K2 call rtr_solve_block, the masked Riemannian
-// trust-region (RTR + Steihaug tCG) solve of the lifted pose-graph problem,
-// from one 256-thread block; K2's RGD variant and K3 call rgd_step.
+// Device code shared by two hand-written Hopper kernels of the solver: K1
+// (rtr_block.cu, one masked block solve per launch) and K3 (asapp_tick.cu,
+// one asynchronous ASAPP tick per launch). K1 calls rtr_solve_block, the
+// masked Riemannian trust-region (RTR + Steihaug tCG) solve of the lifted
+// pose-graph problem, from one 256-thread block; K3 calls rgd_step. K2
+// (rtr_run.cu) and K4 (rtr_window.cu) solve on windows with the cluster
+// version of this code, rtr_cluster.cuh.
 //
 // It computes what dpgo_ros_tpu/ops/fused_rtr.py::make_edge_alg and
 // make_rtr_solve compute inside the Pallas kernels: cost and Euclidean
@@ -36,8 +37,8 @@
 // each starts with a barrier. Every helper is inlined and a pass keeps at
 // most four pose blocks live (elementwise updates stream through memory),
 // so at 256 threads (up to 255 registers each) the blocks stay in
-// registers instead of local memory. A grid-wide version that spreads
-// edges over all SMs is later work.
+// registers instead of local memory. rtr_cluster.cuh spreads a window's
+// solve over a thread-block cluster; K1's full-width solve is not on it.
 //
 // Layout: X is (n, r, d+1) row-major (the public layout of the port).
 // fp32 only; d is a template parameter (2 or 3), r is a runtime value <= 8.

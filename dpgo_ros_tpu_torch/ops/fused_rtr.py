@@ -5,15 +5,17 @@ CUDA kernels, and the build of every kernel of the package (K3's wrapper is
 
 K1 ports ``dpgo_ros_tpu/ops/fused_rtr.py::rtr_solve_fused`` (the Pallas
 kernel built by ``_make_rtr_kernel``): one masked RTR block solve per
-launch. K2 ports ``rtr_run_fused`` (``_make_rtr_multistep_kernel``): many
-solver steps per launch, with the update schedule, the per-robot relative
-change, termination and the GNC weight-round exit inside the kernel. Both
-share the device code of ``csrc/rtr_common.cuh``; the sources
-``csrc/rtr_block.cu`` (K1) and ``csrc/rtr_run.cu`` (K2) say what bounds
-them and how they are laid out. Each is compiled with nvcc at first use,
-from the checkout's sources, into ``build/dpgo_ros_tpu_torch/`` (keyed by
-a hash of the source, the shared header and the flags), and bound through
-a plain C interface with ctypes.
+launch, on one 256-thread block (``csrc/rtr_block.cu`` on the device code
+of ``csrc/rtr_common.cuh``). K2 ports ``rtr_run_fused``
+(``_make_rtr_multistep_kernel``): many solver steps per launch, with the
+update schedule, the per-robot relative change, termination and the GNC
+weight-round exit inside the kernel; each step solves on its bank row's
+window (``ops/hbm_rtr.py::prepare_row_windows``) on a thread-block cluster
+(``csrc/rtr_run.cu`` on ``csrc/rtr_cluster.cuh``, which K4 shares). The
+sources say what bounds them and how they are laid out. Each is compiled
+with nvcc at first use, from the checkout's sources, into
+``build/dpgo_ros_tpu_torch/`` (keyed by a hash of the source, the shared
+headers and the flags), and bound through a plain C interface with ctypes.
 
 :func:`rtr_solve_fused` and :func:`rtr_run_fused` launch their kernel for
 CUDA tensors and raise if it cannot be built or launched; for CPU tensors
@@ -54,11 +56,13 @@ MAX_RANK = 8
 
 _PKG = Path(__file__).resolve().parent.parent
 HEADER = _PKG / "csrc" / "rtr_common.cuh"
+CLUSTER_HEADER = _PKG / "csrc" / "rtr_cluster.cuh"  # K2's and K4's solve
 SOURCE = _PKG / "csrc" / "rtr_block.cu"  # K1
 RUN_SOURCE = _PKG / "csrc" / "rtr_run.cu"  # K2
 TICK_SOURCE = _PKG / "csrc" / "asapp_tick.cu"  # K3, wrapped in ops/fused_asapp.py
 WINDOW_SOURCE = _PKG / "csrc" / "rtr_window.cu"  # K4, wrapped in ops/hbm_rtr.py
 PEAK_SOURCE = _PKG / "csrc" / "peak_chains.cu"  # K5, K6, wrapped in ops/peak_chains.py
+ALL_SOURCES = (SOURCE, RUN_SOURCE, TICK_SOURCE, WINDOW_SOURCE, PEAK_SOURCE)
 BUILD_DIR = _PKG.parent / "build" / "dpgo_ros_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -84,9 +88,10 @@ def _nvcc() -> str:
 
 def _lib_path(source: Path) -> Path:
     """Library path for ``source``, keyed by a hash of every file it
-    compiles (the source and the shared header) and the flags."""
+    compiles (the source and the shared headers) and the flags."""
     key = hashlib.sha256(
-        source.read_bytes() + HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + HEADER.read_bytes() + CLUSTER_HEADER.read_bytes()
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}_{key}.so"
 
@@ -95,8 +100,7 @@ def build_all(sources: Optional[List[Path]] = None) -> List[Tuple[Path, str]]:
     """Compile every kernel source whose library is missing, one nvcc per
     source, all started together. Returns (library path, ptxas report) per
     source; raises if any nvcc fails."""
-    sources = (list(sources) if sources is not None
-               else [SOURCE, RUN_SOURCE, TICK_SOURCE, WINDOW_SOURCE, PEAK_SOURCE])
+    sources = list(sources) if sources is not None else list(ALL_SOURCES)
     libs = [_lib_path(src) for src in sources]
     procs = []
     for src, lib in zip(sources, libs):
@@ -143,11 +147,13 @@ def _library(source: Path) -> ctypes.CDLL:
                 fn.restype = ci
         elif source == WINDOW_SOURCE:
             lib.dpgo_rtr_window_solve.argtypes = (
-                [ci] * 6 + [vp] * 14 + [ci, ci] + [cf] * 5 + [vp]
+                [ci] * 8 + [vp] * 15 + [ci, ci] + [cf] * 5 + [vp]
             )
             lib.dpgo_rtr_window_solve.restype = ci
-            lib.dpgo_rtr_window_workspace_floats.argtypes = [ci] * 4
+            lib.dpgo_rtr_window_workspace_floats.argtypes = [ci] * 6
             lib.dpgo_rtr_window_workspace_floats.restype = ctypes.c_longlong
+            lib.dpgo_rtr_window_smem_bytes.argtypes = [ci] * 3
+            lib.dpgo_rtr_window_smem_bytes.restype = ctypes.c_longlong
         elif source == TICK_SOURCE:
             lib.dpgo_asapp_tick.argtypes = (
                 [ci] * 9 + [vp] * 13 + [cf] + [vp] * 4
@@ -157,11 +163,11 @@ def _library(source: Path) -> ctypes.CDLL:
             lib.dpgo_asapp_tick_workspace_floats.restype = ctypes.c_longlong
         elif source == RUN_SOURCE:
             lib.dpgo_rtr_run.argtypes = (
-                [ci] * 8 + [vp] * 20 + [ci] * 6 + [cf] * 3
+                [ci] * 10 + [vp] * 23 + [ci] * 6 + [cf] * 3
                 + [ci, ci] + [cf] * 5 + [vp]
             )
             lib.dpgo_rtr_run.restype = ci
-            lib.dpgo_rtr_run_workspace_floats.argtypes = [ci] * 5
+            lib.dpgo_rtr_run_workspace_floats.argtypes = [ci] * 7
             lib.dpgo_rtr_run_workspace_floats.restype = ctypes.c_longlong
         else:
             lib.dpgo_rtr_block_solve.argtypes = (
@@ -172,6 +178,17 @@ def _library(source: Path) -> ctypes.CDLL:
             lib.dpgo_rtr_block_workspace_floats.restype = ctypes.c_longlong
         _libs[source] = lib
     return lib
+
+
+def check_launch(who: str, rc: int, cluster: int = 0) -> None:
+    """Raise unless a launch function returned 0 (cudaSuccess); -1 means no
+    cluster of ``cluster`` CTAs fits on the card."""
+    if rc == -1:
+        raise RuntimeError(
+            f"{who}: no cluster of {cluster} CTAs fits on this card "
+            "(cudaOccupancyMaxActiveClusters is 0)")
+    if rc != 0:
+        raise RuntimeError(f"{who} launch failed: cudaError {rc}")
 
 
 def rtr_solve_fused(
@@ -330,6 +347,7 @@ def rtr_run_fused(
     record: bool = False,
     rgd_stepsize: float = 0.0,
     offsets: Optional[torch.Tensor] = None,
+    windows=None,
 ):
     """Up to ``it_cap − it0`` solver steps in one launch (K2).
 
@@ -346,11 +364,18 @@ def rtr_run_fused(
 
     X (n, r, d+1); mask_bank (m, n); sched (it_cap,) int32 bank rows;
     Pinv (n, d+1, d+1); adj (R, R) robot adjacency; rel0 (R,); cost0 the
-    cost of X; ``offsets`` (R+1,) int32 robot block bounds.
+    cost of X; ``offsets`` (R+1,) int32 robot block bounds; ``windows``
+    (``hbm_rtr.prepare_row_windows``) one window per bank row, whose
+    block is the row's mask: the kernel solves each step on its row's
+    window and needs them; the plain version solves full-width (the same
+    function) and only checks them.
 
     Returns (X, rel (R,), stats (4,)[, rel_hist (it_cap, R)]) — stats
     ``[cost, iteration, steps taken, tCG iterations]``; rel_hist rows are
-    written at the absolute iteration and the others stay NaN.
+    written at the absolute iteration and the others stay NaN. The
+    kernel's cost is ``cost0`` moved by each step's window f − f0, the
+    plain version's the last solve's full-width f: the same value up to
+    fp32 rounding.
     """
     if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rtr_run_fused: unsupported device {X.device}")
@@ -383,6 +408,10 @@ def rtr_run_fused(
             raise TypeError(f"rtr_run_fused: {name} is {ten.dtype}, expected {dt}")
         if not ten.is_contiguous():
             raise ValueError(f"rtr_run_fused: {name} is not contiguous")
+    if windows is not None:
+        _check_row_windows(windows, mask_bank, X, edges)
+    elif on_card:
+        raise ValueError("rtr_run_fused: the kernel needs the bank rows' windows")
     live = sched[it0:it_cap] if it0 < it_cap else sched[:0]
     if live.numel() and (int(live.min()) < 0 or int(live.max()) >= mask_bank.shape[0]):
         raise ValueError("rtr_run_fused: a sched entry is outside the mask bank")
@@ -397,20 +426,42 @@ def rtr_run_fused(
             cost0=cost0, offsets=offsets, **run,
         )
     return _launch_run(X, mask_bank, sched, Pinv, edges, params, adj, rel0,
-                       cost0, offsets, kw, tw, run)
+                       cost0, offsets, kw, tw, run, windows)
+
+
+def _check_row_windows(windows, bank, X, edges) -> None:
+    """Raise unless ``windows`` has one window per bank row, of this world,
+    on X's device, each block the size of its row's mask."""
+    who = "rtr_run_fused"
+    if windows.num_rows != bank.shape[0]:
+        raise ValueError(
+            f"{who}: {windows.num_rows} windows for {bank.shape[0]} bank rows")
+    if windows.n != X.shape[0] or windows.num_edges != edges.num_edges:
+        raise ValueError(
+            f"{who}: windows of a world of {windows.n} poses and "
+            f"{windows.num_edges} edges, got {X.shape[0]} and {edges.num_edges}")
+    for name in ("poses", "edges", "src", "dst", "pull", "meta", "part", "row_robots"):
+        ten = getattr(windows, name)
+        if ten.device != X.device:
+            raise ValueError(f"{who}: windows.{name} on {ten.device}, X on {X.device}")
+        if ten.dtype != torch.int32 or not ten.is_contiguous():
+            raise TypeError(f"{who}: windows.{name} must be contiguous int32")
+    if (bank > 0).sum(1).tolist() != windows.num_poses.tolist():
+        raise ValueError(f"{who}: the windows' blocks are not the bank rows")
 
 
 def _launch_run(X, bank, sched, Pinv, edges, params, adj, rel0, cost0,
-                offsets, kw, tw, run):
+                offsets, kw, tw, run, windows):
     global RUN_LAUNCHES
-    n, r, dp1 = X.shape
+    _, r, dp1 = X.shape
     d = dp1 - 1
-    E = edges.num_edges
     R = offsets.shape[0] - 1
     it_cap = run["it_cap"]
+    nc, P = windows.cluster, windows.slice_max
     lib = _library(RUN_SOURCE)
-    ws = lib.dpgo_rtr_run_workspace_floats(d, r, n, E, R)
-    X_out = torch.empty_like(X)
+    ws = lib.dpgo_rtr_run_workspace_floats(
+        d, r, windows.max_poses, windows.max_edges, R, nc, P)
+    X_out = X.clone()  # the kernel steps it in place
     rel = torch.empty_like(rel0)
     stats = torch.empty(4, dtype=torch.float32, device=X.device)
     rel_hist = (
@@ -422,11 +473,13 @@ def _launch_run(X, bank, sched, Pinv, edges, params, adj, rel0, cost0,
     inner_tol = run["inner_tol"]
     with torch.cuda.device(X.device):  # launch on X's card, in its stream
         rc = lib.dpgo_rtr_run(
-            d, r, n, E, int(edges.pull.shape[1]), R, int(bank.shape[0]), it_cap,
-            p(X), p(bank), p(sched), p(Pinv), p(edges.src), p(edges.dst),
-            p(edges.R), p(edges.t), p(kw), p(tw), p(edges.pull), p(offsets),
-            p(adj), p(rel0), p(cost0),
-            p(X_out), p(rel), p(stats), p(rel_hist), p(work),
+            d, r, int(windows.pull.shape[1]), R, int(bank.shape[0]), it_cap, nc, P,
+            windows.max_poses, windows.max_edges,
+            p(X_out), p(sched), p(Pinv), p(edges.R), p(edges.t), p(kw), p(tw),
+            p(offsets), p(windows.meta), p(windows.poses), p(windows.edges),
+            p(windows.src), p(windows.dst), p(windows.pull), p(windows.part),
+            p(windows.row_robots), p(adj), p(rel0), p(cost0),
+            p(rel), p(stats), p(rel_hist), p(work),
             run["it0"], run["last_wu"], int(run["gnc_pending"]), int(run["gnc"]),
             run["inner"], int(inner_tol is not None),
             float(inner_tol if inner_tol is not None else 0.0), run["tol"],
@@ -437,8 +490,7 @@ def _launch_run(X, bank, sched, Pinv, edges, params, adj, rel0, cost0,
             float(params.tcg_theta),
             ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
         )
-    if rc != 0:
-        raise RuntimeError(f"rtr_run launch failed: cudaError {rc}")
+    check_launch("rtr_run", rc, nc)
     RUN_LAUNCHES += 1
     out = (X_out, rel, stats)
     return out + (rel_hist,) if run["record"] else out

@@ -1,6 +1,8 @@
 """The windowed block solve (K4) as a hand-written CUDA kernel on a
 gathered window, its plain version and the window tables. The engine runs
-every RoundRobin block solve through it (``parallel/rbcd.py``).
+every RoundRobin and Uniform block solve through it (``parallel/rbcd.py``);
+the multi-step kernel K2 solves each step on the same kind of window, one
+per bank row (:func:`prepare_row_windows`).
 
 K4 ports ``dpgo_ros_tpu/ops/hbm_rtr.py::rtr_solve_hbm`` (the Pallas kernel
 built by ``_make_hbm_kernel``, with ``prepare_operands`` and
@@ -19,8 +21,10 @@ order. The tables hold structure only: R, t and the effective weights are
 read through the global edge ids at every call, so a GNC weight round
 needs no rebuild.
 
-:func:`rtr_solve_hbm` launches the kernel (``csrc/rtr_window.cu``) for
-CUDA tensors and raises if it cannot be built or launched; for CPU tensors
+:func:`rtr_solve_hbm` launches the kernel (``csrc/rtr_window.cu``, one
+thread-block cluster of :func:`cluster_size` CTAs, each owning a slice of
+the window's poses cut by :func:`partition`) for CUDA tensors and raises if
+it cannot be built or launched, or if no such cluster fits; for CPU tensors
 it runs the plain version :func:`rtr_solve_hbm_ref` (gather the local
 ``EdgeSet``, the ported ``rtr_solve`` on it, scatter the block back). No
 path falls back from one to the other.
@@ -53,30 +57,73 @@ STATS_LEN = 7
 LAUNCHES = 0
 
 
+# the cluster of one launch (csrc/rtr_cluster.cuh): about one window pose
+# per thread of a 256-thread CTA, at least 2 and at most 16 CTAs (Hopper's
+# non-portable cluster size)
+POSES_PER_CTA = 256
+CLUSTER_MIN, CLUSTER_MAX = 2, 16
+# a pose's pose-local work in a solve (its share of every pass, the
+# 20-step Newton–Schulz retraction) counted in incident edges: the slices
+# are cut by incident edges + POSE_WORK. On the card, 32 beat 2, 8 and 128
+# (chip_smoke.py's slice sweep, PERF.md)
+POSE_WORK = 32
+
+
+def cluster_size(max_poses: int) -> int:
+    """CTAs of the cluster that solves windows of up to ``max_poses``
+    poses."""
+    return int(min(CLUSTER_MAX, max(CLUSTER_MIN, -(-max_poses // POSES_PER_CTA))))
+
+
+def partition(work: np.ndarray, parts: int) -> np.ndarray:
+    """(parts + 1,) bounds cutting the poses 0..len(work)-1 into ``parts``
+    contiguous slices of about equal total ``work``."""
+    cum = np.cumsum(work, dtype=np.float64)
+    cuts = np.searchsorted(cum, cum[-1] * np.arange(1, parts) / parts, side="right")
+    return np.concatenate([[0], cuts, [work.size]]).astype(np.int64)
+
+
 @dataclasses.dataclass
 class Windows:
-    """Every robot's window, packed as CSR: robot k's local poses are
-    ``poses[pose_off[k]:pose_off[k+1]]`` (its ``num_poses[k]`` block poses
-    first) with their pull rows at the same positions of ``pull``, and its
-    local edges ``edges/src/dst[edge_off[k]:edge_off[k+1]]``. Local pull
-    entries index the window's contribution rows (local edge j as src ↦ j,
-    as dst ↦ E_k + j, padding 2·E_k for E_k local edges)."""
+    """One window per row, packed as CSR. A row names robots (``rows[k]``:
+    one robot for RoundRobin and Uniform, a colour class for Parallel);
+    its block is the union of their poses, in order. Row k's local poses
+    are ``poses[pose_off[k]:pose_off[k+1]]`` (its ``num_poses[k]`` block
+    poses first, then its sorted separators) with their pull rows at the
+    same positions of ``pull``, and its local edges
+    ``edges/src/dst[edge_off[k]:edge_off[k+1]]``. Local pull entries index
+    the window's contributions (local edge j as src ↦ j, as dst ↦ E_k + j,
+    padding 2·E_k for E_k local edges). ``part[k]`` cuts row k's local
+    poses into the ``cluster`` CTA slices of one launch, by work;
+    ``meta`` holds per row ``[pose_off, edge_off, block size, row_off]``
+    on the device for K2, ``row_robots`` the rows' robots (CSR by
+    ``row_off``)."""
 
     n: int
     num_edges: int
-    num_poses: np.ndarray  # (R,) block sizes
-    pose_off: np.ndarray  # (R+1,) host
-    edge_off: np.ndarray  # (R+1,) host
+    num_poses: np.ndarray  # (m,) block sizes
+    pose_off: np.ndarray  # (m+1,) host
+    edge_off: np.ndarray  # (m+1,) host
     poses: torch.Tensor  # (Σ nw,) int32 global pose ids
     edges: torch.Tensor  # (Σ ew,) int32 global edge ids, global order
     src: torch.Tensor  # (Σ ew,) int32 local endpoints
     dst: torch.Tensor
     pull: torch.Tensor  # (Σ nw, D) int32
     offsets: torch.Tensor  # (R+1,) int32 robot block bounds
+    rows: Tuple[Tuple[int, ...], ...]
+    row_robots: torch.Tensor  # (Σ robots of the rows,) int32
+    meta: torch.Tensor  # (m+1, 4) int32
+    cluster: int  # CTAs of one launch
+    part: torch.Tensor  # (m, cluster+1) int32 slice bounds
+    slice_max: int  # most poses in one slice
 
     @property
     def num_robots(self) -> int:
-        return int(self.num_poses.shape[0])
+        return int(self.offsets.shape[0]) - 1
+
+    @property
+    def num_rows(self) -> int:
+        return len(self.rows)
 
     @property
     def max_poses(self) -> int:
@@ -86,30 +133,45 @@ class Windows:
     def max_edges(self) -> int:
         return int(np.diff(self.edge_off).max())
 
-    def window(self, robot: int):
-        """(poses, edges, src, dst, pull) of one robot: views of the tables."""
-        a, b = int(self.pose_off[robot]), int(self.pose_off[robot + 1])
-        c, e = int(self.edge_off[robot]), int(self.edge_off[robot + 1])
+    def window(self, row: int):
+        """(poses, edges, src, dst, pull) of one row: views of the tables."""
+        a, b = int(self.pose_off[row]), int(self.pose_off[row + 1])
+        c, e = int(self.edge_off[row]), int(self.edge_off[row + 1])
         return (self.poses[a:b], self.edges[c:e], self.src[c:e],
                 self.dst[c:e], self.pull[a:b])
 
 
 def prepare_windows(problem) -> Windows:
     """Every robot's window of ``problem`` (a ``LiftedProblem``), built on
-    the host from its static structure and placed on its device. The
-    counterpart of the JAX package's ``prepare_operands`` +
+    the host from its static structure and placed on its device: K4's
+    tables. The counterpart of the JAX package's ``prepare_operands`` +
     ``window_width``."""
+    return prepare_row_windows(problem, [(k,) for k in range(problem.num_robots)])
+
+
+def prepare_row_windows(problem, rows) -> Windows:
+    """One window per row of robots (``rows``: sequences of robot ids, in
+    ascending order): the union of their blocks, the edges with an endpoint
+    in it, in global order, and their far endpoints. K2's tables, one per
+    bank row; :func:`prepare_windows` is the one-robot case."""
     he = problem.host_edges
     src, dst = np.asarray(he.src, np.int64), np.asarray(he.dst, np.int64)
     n = problem.n
     bounds = np.concatenate([problem.offsets, [n]]).astype(np.int64)
+    rows = tuple(tuple(int(k) for k in row) for row in rows)
     loc = np.full(n, -1, np.int64)
-    poses, edges, lsrc, ldst, pulls = [], [], [], [], []
-    for a, b in zip(bounds[:-1], bounds[1:]):
-        eids = np.flatnonzero(((src >= a) & (src < b)) | ((dst >= a) & (dst < b)))
+    inblk = np.zeros(n, bool)
+    poses, edges, lsrc, ldst, pulls, sizes = [], [], [], [], [], []
+    for row in rows:
+        if not row or list(row) != sorted(set(row)):
+            raise ValueError(f"prepare_row_windows: row {row} is not ascending robots")
+        blk = np.concatenate([np.arange(bounds[k], bounds[k + 1]) for k in row])
+        inblk[blk] = True
+        eids = np.flatnonzero(inblk[src] | inblk[dst])
         ends = np.concatenate([src[eids], dst[eids]])
-        sep = np.unique(ends[(ends < a) | (ends >= b)])
-        pk = np.concatenate([np.arange(a, b), sep])
+        sep = np.unique(ends[~inblk[ends]])
+        inblk[blk] = False
+        pk = np.concatenate([blk, sep])
         loc[pk] = np.arange(pk.size)
         ls, ld = loc[src[eids]], loc[dst[eids]]
         loc[pk] = -1
@@ -118,22 +180,33 @@ def prepare_windows(problem) -> Windows:
         lsrc.append(ls)
         ldst.append(ld)
         pulls.append(build_pull_index(ls, ld, pk.size))
+        sizes.append(blk.size)
     D = max(p.shape[1] for p in pulls)
+    max_nw = max(p.size for p in poses)
+    nc = cluster_size(max_nw)
+    part = np.stack([
+        partition((p < 2 * e.size).sum(1) + float(POSE_WORK), nc)
+        for p, e in zip(pulls, edges)
+    ])
     pull = np.concatenate([
         np.pad(p, ((0, 0), (0, D - p.shape[1])), constant_values=2 * e.size)
         for p, e in zip(pulls, edges)
     ])
     dev = problem.device
-    i32 = lambda parts: torch.as_tensor(
-        np.concatenate(parts).astype(np.int32), device=dev)
-    csr = lambda parts: np.concatenate([[0], np.cumsum([p.size for p in parts])])
+    i32 = lambda a: torch.as_tensor(np.asarray(a).astype(np.int32), device=dev)
+    csr = lambda parts: np.concatenate([[0], np.cumsum([len(p) for p in parts])])
+    pose_off, edge_off, row_off = csr(poses), csr(edges), csr(rows)
+    meta = np.stack([pose_off, edge_off, np.append(sizes, 0), row_off], axis=1)
     return Windows(
         n=n, num_edges=int(src.size),
-        num_poses=np.asarray(problem.num_poses, np.int64),
-        pose_off=csr(poses), edge_off=csr(edges),
-        poses=i32(poses), edges=i32(edges), src=i32(lsrc), dst=i32(ldst),
-        pull=torch.as_tensor(pull, dtype=torch.int32, device=dev),
-        offsets=torch.as_tensor(bounds, dtype=torch.int32, device=dev),
+        num_poses=np.asarray(sizes, np.int64),
+        pose_off=pose_off, edge_off=edge_off,
+        poses=i32(np.concatenate(poses)), edges=i32(np.concatenate(edges)),
+        src=i32(np.concatenate(lsrc)), dst=i32(np.concatenate(ldst)),
+        pull=i32(pull), offsets=i32(bounds),
+        rows=rows, row_robots=i32(np.concatenate([list(r) for r in rows])),
+        meta=i32(meta), cluster=nc, part=i32(part),
+        slice_max=int(np.diff(part, axis=1).max()),
     )
 
 
@@ -172,9 +245,9 @@ def rtr_solve_hbm(
     if isinstance(robot, bool):
         raise TypeError("rtr_solve_hbm: robot must be an integer")
     robot = operator.index(robot)
-    if not 0 <= robot < windows.num_robots:
+    if not 0 <= robot < windows.num_rows:
         raise ValueError(
-            f"rtr_solve_hbm: robot {robot} outside 0..{windows.num_robots - 1}"
+            f"rtr_solve_hbm: robot {robot} outside 0..{windows.num_rows - 1}"
         )
     if not on_card:
         return rtr_solve_hbm_ref(X, robot, Pinv, edges, params, windows)
@@ -186,9 +259,10 @@ def _launch(X, robot, Pinv, edges, params, windows, kw, tw):
     n, r, dp1 = X.shape
     d = dp1 - 1
     poses, eids, lsrc, ldst, pull = windows.window(robot)
+    nc, P = windows.cluster, windows.slice_max
     lib = fused_rtr._library(fused_rtr.WINDOW_SOURCE)
     ws = lib.dpgo_rtr_window_workspace_floats(
-        d, r, windows.max_poses, windows.max_edges)
+        d, r, windows.max_poses, windows.max_edges, nc, P)
     X_out = X.clone()
     stats = torch.empty(STATS_LEN, dtype=torch.float32, device=X.device)
     work = torch.empty(ws, dtype=torch.float32, device=X.device)
@@ -196,9 +270,9 @@ def _launch(X, robot, Pinv, edges, params, windows, kw, tw):
     with torch.cuda.device(X.device):  # launch on X's card, in its stream
         rc = lib.dpgo_rtr_window_solve(
             d, r, int(poses.shape[0]), int(eids.shape[0]),
-            int(windows.num_poses[robot]), int(pull.shape[1]),
+            int(windows.num_poses[robot]), int(pull.shape[1]), nc, P,
             p(X), p(Pinv), p(edges.R), p(edges.t), p(kw), p(tw),
-            p(poses), p(eids), p(lsrc), p(ldst), p(pull),
+            p(poses), p(eids), p(lsrc), p(ldst), p(pull), p(windows.part[robot]),
             p(X_out), p(stats), p(work),
             int(params.max_iterations), int(params.max_tcg_iterations),
             float(params.gradnorm_tol), float(params.initial_radius),
@@ -206,8 +280,7 @@ def _launch(X, robot, Pinv, edges, params, windows, kw, tw):
             float(params.tcg_theta),
             ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
         )
-    if rc != 0:
-        raise RuntimeError(f"rtr_window_solve launch failed: cudaError {rc}")
+    fused_rtr.check_launch("rtr_window_solve", rc, nc)
     LAUNCHES += 1
     return X_out, stats
 

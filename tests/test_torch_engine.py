@@ -132,9 +132,10 @@ def test_every_block_update_goes_through_rtr_solve_fused(
 
 @pytest.mark.parametrize("what", ["acceleration", "gnc", "uniform"])
 def test_unported_features_raise(problems, what):
-    """Acceleration and the Uniform rule are not ported (the engine refuses
-    them at construction); GNC is, but the runners do not solve blocks with
-    the asynchronous mode's RGD solver — an async engine is built (its
+    """Acceleration is not ported (the engine refuses it at construction);
+    the Uniform rule now is, so its engine builds and runs where it raised
+    before; GNC is, but the runners do not solve blocks with the
+    asynchronous mode's RGD solver — an async engine is built (its
     ``initialize`` serves the ASAPP engine, as in JAX) and its runners
     refuse."""
     _, tp = problems
@@ -143,6 +144,11 @@ def test_unported_features_raise(problems, what):
         "gnc": dict(robust_cost_type=RobustCostType.GNC_TLS, asynchronous=True),
         "uniform": dict(rule=UpdateRule.UNIFORM),
     }[what]
+    if what == "uniform":
+        eng = RBCDEngine(tp, port_config(_cfg(**kw)))
+        _, info = eng.run(eng.initialize(ylift=np.eye(5, 3)), max_iters=2)
+        assert info["iterations"] == 2
+        return
     if what != "gnc":
         with pytest.raises(NotImplementedError):
             RBCDEngine(tp, port_config(_cfg(**kw)))
