@@ -19,10 +19,14 @@ Phases (any failure exits nonzero; nothing is caught):
   4. hold K2, the cluster kernel that solves each step on its bank row's
      window, against its plain version (full-width, the same function) on
      the sphere (10 RoundRobin steps, 10 Uniform steps on a schedule passed
-     in, 6 Parallel steps on the colour classes' windows, a GNC exit on the
-     cadence, 10 RGD steps; r = 8 too) and on the SE(2) ring (r = 2 and 5,
-     d = 2): the same exit, steps and tCG iterations, and a second launch
-     bit-identical; print each case's cluster and shared memory;
+     in and 10 on the rule's own draw, 6 Parallel steps on the colour
+     classes' windows, a GNC exit on the cadence, 10 RGD steps; r = 8
+     too) and on the SE(2) ring (r = 2 and 5, d = 2): the same exit, steps
+     and tCG iterations, and a second launch bit-identical; where the
+     schedule solves a robot twice in a row or the tCG totals differ, each
+     step also once through both from the kernel's own state, the tCG
+     count equal on every step but those that revisit a robot; print each
+     case's cluster and shared memory;
   5. hold K3 against its plain version on the sphere from a noisy state:
      K = 3, 20 chained ticks with one fixed delay table, 1 or 2 steps per
      tick, with and without the preconditioner (X, movement, ring buffer);
@@ -54,7 +58,9 @@ Phases (any failure exits nonzero; nothing is caught):
      same TR and tCG counts, X, f − f0 and gn within tolerance, every pose
      outside the block bit-identical to the input, a second launch
      bit-identical; the same against the plain version on the sphere (r =
-     5, 8) and the SE(2) ring (r = 2, 5; d = 2);
+     5, 8) and the SE(2) ring (r = 2, 5; d = 2); the first robot of each
+     case solved again at once from K4's result, through both (the same
+     TR count, X and f within the K2 run tolerances);
  11. drive the large-world main path (``--synthetic sphere --synthetic_n
      50000 --num_robots 16``, Odometry init, RoundRobin, at most 10
      sweeps) in engine mode with the counters zeroed just before: K4
@@ -70,10 +76,8 @@ Phases (any failure exits nonzero; nothing is caught):
      solve phase;
  13. time K4 against K1 full-width per block solve below the large world:
      the dpgo_demo world, and worlds whose window is the whole world (1
-     robot) or most of it (the measurement behind ``SEQUENTIAL_ON_WINDOWS``);
-     then K4 per solve (large and dpgo_demo worlds) and K2 per step with
-     the clusters' slices cut under several pose weights (the measurement
-     behind ``hbm_rtr.POSE_WORK``);
+     robot) or most of it (the measurement behind ``SEQUENTIAL_ON_WINDOWS``;
+     the one behind ``hbm_rtr.POSE_WORK`` is ``slice_sweep.py``'s);
  14. hold K5 and K6, the calibration chains (csrc/peak_chains.cu), against
      their plain versions on measure_peaks' inputs at 1, 7, 500 and 2,000
      steps: bit-identical (max abs error 0);
@@ -92,9 +96,7 @@ and plain version, the bound — the larger of the bytes the call must move
 over the card's memory rate and its operations over the fp32 rate, counted
 over the poses and edges each block solve or robot step needs, with which
 of the two bounds it — and the library call's time, null: no single
-PyTorch call computes these functions; K2 and K4 also their time in the
-one-block design before the clusters (PERF.md §6, same card model and
-power limit), their
+PyTorch call computes these functions; K2 and K4 also their
 cluster, shared memory per CTA and ptxas registers and stack per (d, r)
 instance; K3 also its whole tick's ms, K4 also K1's full-width ms on the
 same blocks and phase 13's pairs; K5 and K6 their ms at 2,000 steps, their
@@ -159,12 +161,14 @@ TOL_F0, TOL_F, TOL_X, TOL_HIST = 1e-5, 1e-4, 1e-4, 2e-3
 TOL_RUN_X, TOL_RUN_REL, TOL_RUN_COST = 1e-3, 1e-3, 1e-4
 DEMO_PARAMS = RTRParams(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
 DEV = torch.device("cuda")
-# the Uniform K2 case's schedule, passed in (the CPU tests hold the rule's
-# own draw): no robot twice in a row, since a block solved again at once
-# starts at its optimum, where the tCG count follows fp32 sum order
+# a Uniform K2 case's schedule, passed in as a caller would (the CPU tests
+# pass JAX's draw this way); the uniform-draw case runs the rule's own
+# draw (seed 42: robots 2, 2, 1, 4, 1, 0, 0, 4, 0, 3), a robot twice in a
+# row at steps 1 and 6
 UNIFORM_SCHED = [3, 0, 4, 1, 0, 2, 4, 3, 1, 2]
 # ms per K2 step and per K4 solve of the one-block design the clusters
-# replaced (one 256-thread block; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W)
+# replaced (one 256-thread block; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's times on the timing lines only
 ONE_BLOCK_K2_MS, ONE_BLOCK_K4_MS = 18.945, 7.672
 # K3 vs plain over 20 chained fp32 ticks: X and the ring buffer within
 # TOL_TICK_X of max |X|, the per-tick movement history within rel
@@ -320,10 +324,10 @@ def phase_compare() -> float:
 def run_cases():
     """(name, prob, X, bank, sched, Pinv, adj, offsets, windows, run) for
     every K2 comparison case: the 2,500-pose 5-robot sphere from a noisy
-    state (RoundRobin, Uniform on UNIFORM_SCHED, Parallel on the colour
-    classes' windows, a GNC exit on the cadence, RGD steps; RoundRobin at
-    r = 8) and the SE(2) ring (d = 2: r = 5 RoundRobin and Parallel, r = 2
-    RoundRobin)."""
+    state (RoundRobin, Uniform on UNIFORM_SCHED and on the rule's own draw,
+    Parallel on the colour classes' windows, a GNC exit on the cadence,
+    RGD steps; RoundRobin at r = 8) and the SE(2) ring (d = 2: r = 5
+    RoundRobin and Parallel, r = 2 RoundRobin)."""
     worlds = [("sphere2500", *generate_world("sphere", n=2500, num_robots=5, seed=1)[:2]),
               ("se2-ring", *se2_world(1200, 4, seed=3))]
     base = dict(last_wu=0, gnc_pending=False, tol=0.0, gnc=False, inner=1,
@@ -331,6 +335,7 @@ def run_cases():
     for wi, (name, data, gt) in enumerate(worlds):
         cases = [(5, "roundrobin", UpdateRule.ROUND_ROBIN, 10, {}),
                  (5, "uniform", UpdateRule.UNIFORM, 10, {}),
+                 (5, "uniform-draw", UpdateRule.UNIFORM, 10, {}),
                  (5, "parallel", UpdateRule.PARALLEL, 6, {}),
                  (5, "gnc-exit", UpdateRule.ROUND_ROBIN, 10,
                   dict(gnc=True, gnc_pending=True, inner=3)),
@@ -348,7 +353,7 @@ def run_cases():
             prob, X = probs[r]
             eng = RBCDEngine(prob, AgentConfig(num_robots=prob.num_robots,
                                                update_rule=rule, dtype="float32"))
-            sched_in = UNIFORM_SCHED if rule == UpdateRule.UNIFORM else None
+            sched_in = UNIFORM_SCHED if cname == "uniform" else None
             bank, sched = eng.mask_bank_and_schedule(steps, sched_in)
             run = dict(base, it0=0, it_cap=steps, **kw)
             yield (f"{name}/r{r}/{cname}", prob, X, bank, sched,
@@ -367,41 +372,100 @@ def _run_pair(prob, X, bank, sched, Pinv, adj, offs, windows, run, fn):
 
 def phase_compare_run():
     """K2 vs its plain version on every run case; returns (the max abs X
-    error, {case: launch shape}). Gates: the same exit iteration, steps
-    and tCG iterations, X within TOL_RUN_X of max |X|, rel change and
-    history rows within rel TOL_RUN_REL, cost within rel TOL_RUN_COST (the
-    kernel carries it by the windows' f − f0, the plain version reads the
-    full-width f), a second launch bit-identical."""
+    error, {case: launch shape})."""
     worst, shapes = 0.0, {}
-    for name, prob, X, bank, sched, Pinv, adj, offs, w, run in run_cases():
-        args = (prob, X, bank, sched, Pinv, adj, offs, w, run)
-        Xk, relk, sk, hk = _run_pair(*args, fused_rtr.rtr_run_fused)
-        Xk2, relk2, sk2, hk2 = _run_pair(*args, fused_rtr.rtr_run_fused)
-        Xp, relp, sp, hp = _run_pair(*args, fused_rtr.rtr_run_fused_ref)
-        same = (torch.equal(Xk, Xk2) and torch.equal(sk, sk2) and torch.equal(relk, relk2)
-                and torch.equal(hk.nan_to_num(), hk2.nan_to_num()))
-        sk, sp = sk.double().cpu().numpy(), sp.double().cpu().numpy()
-        err = float((Xk - Xp).abs().max())
-        xrel = err / float(Xp.abs().max())
-        rrel = _rel(relk, relp)
-        hrel = _rel(hk, hp)
-        crel = abs(sk[0] - sp[0]) / abs(sp[0])
+    for case in run_cases():
+        err, shapes[case[0]] = check_run_case(case)
         worst = max(worst, err)
-        shapes[name] = launch_shape(w, prob.d, prob.r)
-        print(f"run {name}: it {int(sk[1])}/{int(sp[1])} steps {int(sk[2])}/"
-              f"{int(sp[2])} tCG {int(sk[3])}/{int(sp[3])} cost {sk[0]:.7g} rel "
-              f"{crel:.2e} X rel {xrel:.2e} (max abs {err:.2e}) rel-change rel "
-              f"{rrel:.2e} history rel {hrel:.2e}; repeat bit-identical {same}; "
-              f"schedule {sched.tolist()}; {json.dumps(shapes[name])}", flush=True)
-        assert np.isfinite(sk).all() and torch.isfinite(Xk).all(), name
-        assert int(sk[1]) == int(sp[1]) and int(sk[2]) == int(sp[2]), name
-        assert int(sk[3]) == int(sp[3]), f"{name}: tCG iterations"
-        assert xrel <= TOL_RUN_X and rrel <= TOL_RUN_REL and hrel <= TOL_RUN_REL, name
-        assert crel <= TOL_RUN_COST, name
-        assert same, f"{name}: a second launch differs"
-        if run["gnc"]:
-            assert int(sk[1]) == run["inner"], f"{name}: GNC exit at {int(sk[1])}"
     return worst, shapes
+
+
+def _revisits(sched, steps: int) -> list:
+    """The steps whose bank row an earlier step of the run solved."""
+    s = sched[:steps].tolist()
+    return [j for j in range(steps) if s[j] in s[:j]]
+
+
+def check_run_case(case):
+    """One K2 case against its plain version; returns (max abs X error,
+    launch shape). Gates: the same exit iteration and steps, X within
+    TOL_RUN_X of max |X|, rel change and history rows within rel
+    TOL_RUN_REL, cost within rel TOL_RUN_COST (the kernel carries it by the
+    windows' f − f0, the plain version reads the full-width f), a second
+    launch bit-identical, and the same tCG iterations. Where the run's tCG
+    totals differ, or the schedule solves a row twice in a row, each step
+    is held alone (:func:`check_run_steps`): the tCG totals may then
+    differ by steps that revisit a row, and by no other."""
+    name, prob, X, bank, sched, Pinv, adj, offs, w, run = case
+    args = (prob, X, bank, sched, Pinv, adj, offs, w, run)
+    Xk, relk, sk, hk = _run_pair(*args, fused_rtr.rtr_run_fused)
+    Xk2, relk2, sk2, hk2 = _run_pair(*args, fused_rtr.rtr_run_fused)
+    Xp, relp, sp, hp = _run_pair(*args, fused_rtr.rtr_run_fused_ref)
+    same = (torch.equal(Xk, Xk2) and torch.equal(sk, sk2) and torch.equal(relk, relk2)
+            and torch.equal(hk.nan_to_num(), hk2.nan_to_num()))
+    sk, sp = sk.double().cpu().numpy(), sp.double().cpu().numpy()
+    err = float((Xk - Xp).abs().max())
+    xrel = err / float(Xp.abs().max())
+    rrel = _rel(relk, relp)
+    hrel = _rel(hk, hp)
+    crel = abs(sk[0] - sp[0]) / abs(sp[0])
+    shape = launch_shape(w, prob.d, prob.r)
+    steps = run["it_cap"]
+    revisits = _revisits(sched, steps)
+    twice = [j for j in revisits if sched[j] == sched[j - 1]]
+    print(f"run {name}: it {int(sk[1])}/{int(sp[1])} steps {int(sk[2])}/"
+          f"{int(sp[2])} tCG {int(sk[3])}/{int(sp[3])} cost {sk[0]:.7g} rel "
+          f"{crel:.2e} X rel {xrel:.2e} (max abs {err:.2e}) rel-change rel "
+          f"{rrel:.2e} history rel {hrel:.2e}; repeat bit-identical {same}; "
+          f"schedule {sched.tolist()}, row twice in a row at {twice}; "
+          f"{json.dumps(shape)}", flush=True)
+    assert np.isfinite(sk).all() and torch.isfinite(Xk).all(), name
+    assert int(sk[1]) == int(sp[1]) and int(sk[2]) == int(sp[2]), name
+    assert xrel <= TOL_RUN_X and rrel <= TOL_RUN_REL and hrel <= TOL_RUN_REL, name
+    assert crel <= TOL_RUN_COST, name
+    assert same, f"{name}: a second launch differs"
+    if run["gnc"]:
+        assert int(sk[1]) == run["inner"], f"{name}: GNC exit at {int(sk[1])}"
+    if int(sk[3]) != int(sp[3]) or twice:
+        check_run_steps(case, revisits)
+    return err, shape
+
+
+def check_run_steps(case, revisits) -> None:
+    """Each step j of a K2 case alone, from the kernel's own state after j
+    steps (a K2 run cut there), once through K2 and once through its plain
+    version. Gates: X within TOL_RUN_X of max |X| on every step, the same
+    tCG count on every step not in ``revisits``. A revisited block starts
+    near its local optimum (gn within a few times ``gradnorm_tol``), where
+    the TR exit test and tCG's stagnation follow the fp32 sum order; where
+    the counts differ, the step's block solve through K4 and its plain
+    version from the same state prints the TR iterations and gn."""
+    name, prob, X, bank, sched, Pinv, adj, offs, w, run = case
+    rows = []
+    for j in range(run["it_cap"]):
+        Xj = X if j == 0 else _run_pair(prob, X, bank, sched, Pinv, adj, offs, w,
+                                        dict(run, it_cap=j), fused_rtr.rtr_run_fused)[0]
+        one = dict(run, it0=j, it_cap=j + 1, last_wu=j)
+        Xk, _, sk, _ = _run_pair(prob, Xj, bank, sched, Pinv, adj, offs, w, one,
+                                 fused_rtr.rtr_run_fused)
+        Xp, _, sp, _ = _run_pair(prob, Xj, bank, sched, Pinv, adj, offs, w, one,
+                                 fused_rtr.rtr_run_fused_ref)
+        xrel = float((Xk - Xp).abs().max()) / float(Xp.abs().max())
+        row = int(sched[j])
+        rows.append((row, int(sk[3]), int(sp[3]), xrel))
+        if int(sk[3]) != int(sp[3]) and not run["rgd_stepsize"]:
+            s4, s4p = (fn(Xj, row, Pinv, prob.edges, DEMO_PARAMS, w)[1].tolist()
+                       for fn in (hbm_rtr.rtr_solve_hbm, hbm_rtr.rtr_solve_hbm_ref))
+            print(f"run {name} step {j} (row {row}) through K4/plain: TR "
+                  f"{int(s4[4])}/{int(s4p[4])} tCG {int(s4[5])}/{int(s4p[5])} gn0 "
+                  f"{s4[2]:.5g} gn {s4[3]:.5g}/{s4p[3]:.5g}", flush=True)
+    print(f"run {name} step by step (row, tCG K2/plain, X rel; revisits {revisits}): "
+          + "; ".join(f"{j}: {r} {a}/{b} {x:.2e}" for j, (r, a, b, x) in enumerate(rows)),
+          flush=True)
+    for j, (_, a, b, x) in enumerate(rows):
+        assert x <= TOL_RUN_X, f"{name}: step {j} X"
+        if j not in revisits:
+            assert a == b, f"{name}: step {j} tCG {a}/{b}"
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -888,7 +952,8 @@ def phase_compare_window():
     plain version, {case: launch shape}). Gates: the same TR and tCG
     counts, X within TOL_K4_X of max |X|, f − f0 within rel TOL_K4_DF
     (plain) or TOL_K4_K1 (K1, with gn), every pose outside the block
-    bit-identical to the input, a second launch bit-identical."""
+    bit-identical to the input, a second launch bit-identical; for the
+    first robot of each case, :func:`check_window_repeat`."""
     worst, shapes, launches = 0.0, {}, 0
     before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
     for name, prob, X, Pinv, w, robots in [*large_cases(), *rank_cases()]:
@@ -924,9 +989,31 @@ def phase_compare_window():
             assert df1 <= TOL_K4_K1 and gn1 <= TOL_K4_K1, f"{name}/{k}: vs K1"
             assert torch.equal(Xk[out], X[out]) and torch.equal(Xp[out], X[out]), name
             assert same, f"{name}/{k}: a second launch differs"
+            if k == robots[0]:
+                check_window_repeat(f"{name}/robot{k}", prob, Xk, k, Pinv, w)
+                launches += 1
     assert hbm_rtr.LAUNCHES == before[0] + launches
     hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # comparison launches
     return worst, shapes
+
+
+def check_window_repeat(name, prob, X1, k, Pinv, w) -> None:
+    """Robot k solved again at once from K4's first solve ``X1``, through
+    K4 and its plain version (a RoundRobin sweep never does this, a
+    Uniform draw does). Gates: the same TR iterations, X within TOL_RUN_X
+    of max |X|, f within rel TOL_RUN_COST (K2's tolerances over chained
+    steps: this is a chain of two); the tCG count may differ."""
+    Xk, sk = hbm_rtr.rtr_solve_hbm(X1, k, Pinv, prob.edges, DEMO_PARAMS, w)
+    Xp, sp = hbm_rtr.rtr_solve_hbm_ref(X1, k, Pinv, prob.edges, DEMO_PARAMS, w)
+    sk, sp = sk.double().cpu().numpy(), sp.double().cpu().numpy()
+    xrel = float((Xk - Xp).abs().max()) / float(Xp.abs().max())
+    frel = abs(sk[1] - sp[1]) / abs(sp[1])
+    print(f"window {name} solved again: TR {int(sk[4])}/{int(sp[4])} tCG "
+          f"{int(sk[5])}/{int(sp[5])} (K4/plain) gn0 {sk[2]:.5g} gn {sk[3]:.5g}/"
+          f"{sp[3]:.5g} f {sk[1]:.7g} rel {frel:.2e} X rel {xrel:.2e}", flush=True)
+    assert np.isfinite(sk).all() and torch.isfinite(Xk).all(), name
+    assert int(sk[4]) == int(sp[4]), f"{name}: TR iterations when solved again"
+    assert xrel <= TOL_RUN_X and frel <= TOL_RUN_COST, f"{name}: solved again"
 
 
 def phase_large_main_path(tmp: str):
@@ -1065,41 +1152,6 @@ def phase_gate_sweep():
     return out
 
 
-# the slice weights swept: a pose's pose-local work in incident edges
-# (hbm_rtr.POSE_WORK); 128 cuts the 50k windows nearly by pose count
-SLICE_WEIGHTS = (2, 8, 32, 128)
-
-
-def phase_slice_sweep():
-    """K4 ms per solve (the 16 blocks of the banded large case, the 5 of the
-    dpgo_demo world) and K2 ms per step (10 RoundRobin steps on the
-    dpgo_demo world) with the windows' slices cut under each
-    SLICE_WEIGHTS value (the measurement behind ``hbm_rtr.POSE_WORK``);
-    returns {weight: (K4 50k ms, K4 2,500 ms, K2 ms)}."""
-    before = hbm_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES
-    _, p50, X50, P50, _, _ = large_cases()[0]
-    run = next(c for c in run_cases() if c[0] == "sphere2500/r5/roundrobin")
-    _, p25, X25, bank, sched, P25, adj, offs, _, rc = run
-    out = {}
-    for wt in SLICE_WEIGHTS:
-        with mock.patch.object(hbm_rtr, "POSE_WORK", wt):
-            w50, w25 = hbm_rtr.prepare_windows(p50), hbm_rtr.prepare_windows(p25)
-        k4 = lambda prob, X, Pinv, w: (lambda: [
-            hbm_rtr.rtr_solve_hbm(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
-            for k in range(prob.num_robots)])
-        t50 = min(_time(k4(p50, X50, P50, w50), 3), _time(k4(p50, X50, P50, w50), 3))
-        t25 = min(_time(k4(p25, X25, P25, w25), 3), _time(k4(p25, X25, P25, w25), 3))
-        k2 = lambda: _run_pair(p25, X25, bank, sched, P25, adj, offs, w25, rc,
-                               fused_rtr.rtr_run_fused)
-        t2 = min(_time(k2, 3), _time(k2, 3)) / rc["it_cap"]
-        out[wt] = (t50 / p50.num_robots, t25 / p25.num_robots, t2)
-        print(f"slices at pose work {wt}: K4 {out[wt][0]:.4f} ms per 50k solve (largest "
-              f"slice {w50.slice_max}), {out[wt][1]:.4f} ms per 2,500-pose solve "
-              f"(largest slice {w25.slice_max}); K2 {t2:.4f} ms per step", flush=True)
-    hbm_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES = before  # timing launches
-    return out
-
-
 # ---------------------------------------------------------------- K5, K6
 
 # name: (kernel wrapper, plain version, measure_peaks input, flops per
@@ -1233,7 +1285,6 @@ def main() -> int:
     _phase("async timing", phase_timing_async)
     *k4, k1_full_ms = _phase("K4 timing", phase_timing_window)
     gate = _phase("K4 vs K1 below the large world", phase_gate_sweep)
-    slices = _phase("slice weights", phase_slice_sweep)
     chain_err = _phase("K5/K6 vs plain", phase_compare_chains)
     roof_counts, *cals, _ = _phase("roofline", phase_roofline)
     chains = _phase("K5/K6 timing", phase_timing_chains)
@@ -1243,17 +1294,14 @@ def main() -> int:
                 "dpgo_ros_tpu/ops/fused_rtr.py:1092", launches, max_err, *k1),
         _kernel("rtr_run_fused", "dpgo_ros_tpu_torch/csrc/rtr_run.cu",
                 "dpgo_ros_tpu/ops/fused_rtr.py:1458", run_launches, run_err, *k2,
-                one_block_ms=ONE_BLOCK_K2_MS, launch_shapes=run_shapes,
-                ptxas=ptxas[fused_rtr.RUN_SOURCE.stem]),
+                launch_shapes=run_shapes, ptxas=ptxas[fused_rtr.RUN_SOURCE.stem]),
         _kernel("asapp_tick_fused", "dpgo_ros_tpu_torch/csrc/asapp_tick.cu",
                 "dpgo_ros_tpu/ops/fused_asapp.py:200", tick_launches, tick_err, *k3,
                 tick_ms=tick_ms),
         _kernel("rtr_window_solve", "dpgo_ros_tpu_torch/csrc/rtr_window.cu",
                 "dpgo_ros_tpu/ops/hbm_rtr.py:257", window_launches, window_err, *k4,
-                one_block_ms=ONE_BLOCK_K4_MS, launch_shapes=window_shapes,
-                ptxas=ptxas[fused_rtr.WINDOW_SOURCE.stem],
+                launch_shapes=window_shapes, ptxas=ptxas[fused_rtr.WINDOW_SOURCE.stem],
                 k1_full_width_ms=k1_full_ms,
-                ms_by_slice_weight={str(k): list(v) for k, v in slices.items()},
                 k4_k1_ms_by_world={w: list(t) for w, t in gate.items()}),
         *(_kernel(name, "dpgo_ros_tpu_torch/csrc/peak_chains.cu", replaces,
                   roof_counts[k], chain_err[name], *chains[name][:3],

@@ -347,7 +347,7 @@ def rtr_run_fused(
     record: bool = False,
     rgd_stepsize: float = 0.0,
     offsets: Optional[torch.Tensor] = None,
-    windows=None,
+    windows,
 ):
     """Up to ``it_cap − it0`` solver steps in one launch (K2).
 
@@ -366,9 +366,9 @@ def rtr_run_fused(
     Pinv (n, d+1, d+1); adj (R, R) robot adjacency; rel0 (R,); cost0 the
     cost of X; ``offsets`` (R+1,) int32 robot block bounds; ``windows``
     (``hbm_rtr.prepare_row_windows``) one window per bank row, whose
-    block is the row's mask: the kernel solves each step on its row's
-    window and needs them; the plain version solves full-width (the same
-    function) and only checks them.
+    block is the row's mask, always checked: the kernel solves each step
+    on its row's window; the plain version solves full-width (the same
+    function).
 
     Returns (X, rel (R,), stats (4,)[, rel_hist (it_cap, R)]) — stats
     ``[cost, iteration, steps taken, tCG iterations]``; rel_hist rows are
@@ -408,10 +408,7 @@ def rtr_run_fused(
             raise TypeError(f"rtr_run_fused: {name} is {ten.dtype}, expected {dt}")
         if not ten.is_contiguous():
             raise ValueError(f"rtr_run_fused: {name} is not contiguous")
-    if windows is not None:
-        _check_row_windows(windows, mask_bank, X, edges)
-    elif on_card:
-        raise ValueError("rtr_run_fused: the kernel needs the bank rows' windows")
+    _check_row_windows(windows, mask_bank, X, edges)
     live = sched[it0:it_cap] if it0 < it_cap else sched[:0]
     if live.numel() and (int(live.min()) < 0 or int(live.max()) >= mask_bank.shape[0]):
         raise ValueError("rtr_run_fused: a sched entry is outside the mask bank")

@@ -260,9 +260,10 @@ def sphere_cpu():
 def test_routing(sphere_cpu, monkeypatch, case):
     """RoundRobin solves each block on its window (K4) and Parallel
     full-width (K1); with ``SEQUENTIAL_ON_WINDOWS`` off RoundRobin is
-    full-width too; --mode fused is K2. The windows are built on the first
-    windowed solve, so an engine that runs none (fused, Parallel, the one
-    the async mode builds for ``initialize``) never builds them."""
+    full-width too; --mode fused is K2, on the same robot windows. The
+    windows are built on the first windowed solve or fused run, so an
+    engine that runs none (Parallel, the one the async mode builds for
+    ``initialize``) never builds them."""
     if case == "RoundRobin/full-width":
         monkeypatch.setattr(rbcd, "SEQUENTIAL_ON_WINDOWS", False)
     calls = []
@@ -283,7 +284,7 @@ def test_routing(sphere_cpu, monkeypatch, case):
         return
     if case == "fused":
         eng.make_fused_run(3)(st)
-        assert calls == ["rtr_run_fused"]
+        assert calls == ["prepare_windows", "rtr_run_fused"]
         return
     eng.run(st, max_iters=3)
     if case == "RoundRobin":

@@ -111,6 +111,7 @@ def test_run_cpu_matches_pallas_interpret(name, case):
         last_wu=0, gnc_pending=o["gnc_pending"], cost0=cost0, it_cap=it_cap,
         tol=o["tol"], gnc=o["gnc"], inner=o["inner"], inner_tol=o["inner_tol"],
         record=True, rgd_stepsize=o["rgd_stepsize"], offsets=eng._offsets,
+        windows=eng._row_windows,
     )
     assert fused_rtr.RUN_LAUNCHES == launches  # CPU tensors: plain version
     s_t = s_t.numpy()
@@ -193,7 +194,8 @@ def _operands(bad=None):
     X = torch.as_tensor(noisy_lifted_gt(gt, 5, seed=22), dtype=torch.float32)
     kw = dict(adj=eng._adjf, rel0=torch.full((2,), float("inf")), it0=0,
               last_wu=0, gnc_pending=False, cost0=1.0, it_cap=4, tol=0.0,
-              gnc=False, inner=1, inner_tol=None, offsets=eng._offsets)
+              gnc=False, inner=1, inner_tol=None, offsets=eng._offsets,
+              windows=eng._row_windows)
     args = [X, bank, sched, eng._solver_cache(tp.edges), tp.edges, RTRParams(**DEMO)]
     err = ValueError
     if bad == "bank_dtype":
@@ -265,7 +267,7 @@ def test_run_kernel_matches_plain_version_on_card():
               inner_tol=None, record=False, rgd_stepsize=0.0)
     args = (X, bank, sched, eng._solver_cache(tp.edges), tp.edges, RTRParams(**DEMO))
     launches = fused_rtr.RUN_LAUNCHES
-    X_k, rel_k, s_k = fused_rtr.rtr_run_fused(*args, **kw)
+    X_k, rel_k, s_k = fused_rtr.rtr_run_fused(*args, windows=eng._row_windows, **kw)
     assert fused_rtr.RUN_LAUNCHES == launches + 1
     X_p, rel_p, s_p = fused_rtr.rtr_run_fused_ref(*args, **kw)
     assert int(s_k[1]) == int(s_p[1]) == 6

@@ -6,10 +6,11 @@
    counts; X and f − f0 to 1e-9), on a banded and an irregular world.
 2. The cluster of one launch: its size follows the largest window, and
    every row's slices cover its window's poses in order, balanced by work.
-3. ``rtr_run_fused``'s window operands: the wrong number of rows, another
-   world's windows, windows on another device or of another dtype, or
-   blocks that are not the bank rows raise; the fused runner passes the
-   windows of its rule's bank rows.
+3. ``rtr_run_fused``'s window operands: none, the wrong number of rows,
+   another world's windows, windows on another device or of another dtype,
+   or blocks that are not the bank rows raise; the fused runner passes the
+   windows of its rule's bank rows, and robot rows share the engine's
+   (K4's) windows.
 The CUDA kernels themselves run only on the card (``python3 chip_smoke.py``;
 the ``cuda``-marked case here skips without one).
 """
@@ -128,12 +129,16 @@ def _run_operands():
     return prob, eng, args, kw
 
 
-@pytest.mark.parametrize("bad", ["rows", "other_world", "device", "dtype", "blocks"])
+@pytest.mark.parametrize("bad", ["missing", "rows", "other_world", "device", "dtype",
+                                 "blocks"])
 def test_run_wrapper_rejects_bad_windows(bad):
     prob, eng, args, kw = _run_operands()
     w = eng._row_windows
     err = ValueError
-    if bad == "rows":
+    if bad == "missing":  # the windows are a required operand, on every device
+        with pytest.raises(TypeError):
+            fused_rtr.rtr_run_fused(*args, **kw)
+    elif bad == "rows":
         w = hbm_rtr.prepare_row_windows(prob, [(0,), (1,)])
     elif bad == "other_world":
         data, _ = world("grid3d4")
@@ -146,10 +151,20 @@ def test_run_wrapper_rejects_bad_windows(bad):
     else:
         w = hbm_rtr.prepare_row_windows(prob, [(0, 1), (2,), (3,), (4,), (5,), (1,)])
         assert w.num_poses.tolist() != eng._row_windows.num_poses.tolist()
-    with pytest.raises(err):
-        fused_rtr.rtr_run_fused(*args, windows=w, **kw)
+    if bad != "missing":
+        with pytest.raises(err):
+            fused_rtr.rtr_run_fused(*args, windows=w, **kw)
     stats = fused_rtr.rtr_run_fused(*args, windows=eng._row_windows, **kw)[2]
     assert int(stats[fused_rtr.RUN_STEPS]) == 4
+
+
+@pytest.mark.parametrize("rule", [UpdateRule.ROUND_ROBIN, UpdateRule.UNIFORM])
+def test_robot_rows_share_the_engines_windows(rule):
+    """A robot bank row's window is the robot's: K2 and K4 share one table."""
+    prob, _ = _problem("banded")
+    eng = _engine(prob, rule)
+    assert eng._row_windows is eng._windows
+    assert eng._windows.rows == tuple((k,) for k in range(prob.num_robots))
 
 
 @pytest.mark.parametrize("rule", [UpdateRule.UNIFORM, UpdateRule.PARALLEL])
