@@ -11,11 +11,18 @@ Phases (any failure exits nonzero; nothing is caught):
      (csrc/rtr_run.cu), K3 (csrc/asapp_tick.cu), K4 (csrc/rtr_window.cu)
      and K5 + K6 (csrc/peak_chains.cu), one nvcc per source started
      together; print ptxas's report, and the registers and stack of each
-     (d, r) instance of the cluster kernels K2 and K4;
-  3. hold K1 against its plain PyTorch version on the card, on the
-     2,500-pose 5-robot synthetic sphere (every robot mask and every
-     Parallel colour union), on a 1,000-pose grid3d world (irregular loop
-     closures) and on an SE(2) ring, from noisy states;
+     (d, r) instance of the cluster kernels K1–K4 (K3's also per
+     preconditioner flag);
+  3. hold K1, the cluster kernel that solves its mask's window, against
+     its plain PyTorch version (full-width under the mask) on the card, on
+     the 2,500-pose 5-robot synthetic sphere (every robot mask, every
+     Parallel colour union on the colour windows, the all-ones mask on the
+     all-robots window), on a 1,000-pose grid3d world (irregular loop
+     closures), on an SE(2) ring and on two robots of the 50,000-pose
+     world, from noisy states: the same TR count, f0, f and X within
+     tolerance, the same updated flags, moved within rtol 1e-3, a second
+     launch bit-identical; the wrapper raises on the card without windows
+     and on a mask that is not its row's block;
   4. hold K2, the cluster kernel that solves each step on its bank row's
      window, against its plain version (full-width, the same function) on
      the sphere (10 RoundRobin steps, 10 Uniform steps on a schedule passed
@@ -27,9 +34,12 @@ Phases (any failure exits nonzero; nothing is caught):
      step also once through both from the kernel's own state, the tCG
      count equal on every step but those that revisit a robot; print each
      case's cluster and shared memory;
-  5. hold K3 against its plain version on the sphere from a noisy state:
-     K = 3, 20 chained ticks with one fixed delay table, 1 or 2 steps per
-     tick, with and without the preconditioner (X, movement, ring buffer);
+  5. hold K3, one cluster per robot on the robot's window, against its
+     plain version on the sphere from a noisy state: K = 3, 20 chained
+     ticks with one fixed delay table, 1 or 2 steps per tick, with and
+     without the preconditioner, and on the SE(2) ring (d = 2) (X,
+     movement, ring buffer), a repeated chain bit-identical; the wrapper
+     raises on the card without windows;
   6. drive the CLI main path (``--demo dpgo_demo --synthetic sphere
      --synthetic_n 2500 --device cuda``) in engine mode to its rel-change
      tolerance with the launch counters zeroed just before, and check cost
@@ -44,14 +54,18 @@ Phases (any failure exits nonzero; nothing is caught):
      --synthetic_n 2500 --device cuda``) with the counters zeroed just
      before: one K3 launch per tick, cost decrease, final cost within 1 %
      of the JAX CLI's, finite ATE; then 50 ticks on the card (K3, fp32)
-     and on the CPU (plain, fp64) from one state and one delay table;
+     and on the CPU (plain, fp64) from one state and one delay table; then
+     a run whose device-side stop falls mid-chunk: it stops at the first
+     tick after which every robot's recorded movement is below the
+     tolerance, with X, the ring buffer and the generator of a run of
+     exactly that many ticks;
   9. drive the GNC demo at full width (``--demo dpgo_gnc_demo --synthetic
      sphere --synthetic_n 2500 --synthetic_outlier_ratio 0.1``: 8 robots,
      245 planted outliers) in both modes: 3 weight rounds, K2 launches ==
      rounds + 1 (fused), K4 launches == block updates (engine), the modes'
      accept/reject sets agree, outlier recall no worse than the JAX CLI's;
  10. hold K4, the windowed block solve on a thread-block cluster, against
-     its plain version and against K1 full-width under the robot's mask on
+     its plain version and against K1 (which solves the same window) on
      the 50,000-pose 16-robot sphere from a noisy state, robots 0, 5, 10
      and 15, banded and with 1,000 extra loop closures between random pose
      pairs, and at r = 8 (whose slices do not fit in shared memory): the
@@ -68,13 +82,15 @@ Phases (any failure exits nonzero; nothing is caught):
      and a finite ATE; then one sweep of 16 updates from one state through
      K4 and through K1 full-width (``rbcd.SEQUENTIAL_ON_WINDOWS`` off),
      cost and rel-change histories compared;
- 12. time K1 per solve, K2 per step and K3 per launch against their plain
-     versions at these shapes (K3 also per whole tick, the ring write
-     included), the dpgo_demo solve phase of both modes and the asapp_demo
-     solve phase; K4 per solve over the 16 blocks of the 50,000-pose world,
-     K1 full-width on 4 of them and the plain version, and the large-world
-     solve phase;
- 13. time K4 against K1 full-width per block solve below the large world:
+ 12. time K1 per solve (on the device from a profiler trace and per
+     wrapper call; on the sphere's colour masks, the Parallel path's
+     work, and on its robot masks), K2 per step and K3 per launch against
+     their plain versions at these shapes (K3 also per whole tick, the ring
+     write included), the dpgo_demo solve phase of both modes and of the
+     Parallel rule, and the asapp_demo solve phase; K4 per solve over the
+     16 blocks of the 50,000-pose world, K1 on 4 of them and the plain
+     version, and the large-world solve phase;
+ 13. time K4 against K1 per block solve below the large world:
      the dpgo_demo world, and worlds whose window is the whole world (1
      robot) or most of it (the measurement behind ``SEQUENTIAL_ON_WINDOWS``;
      the one behind ``hbm_rtr.POSE_WORK`` is ``slice_sweep.py``'s);
@@ -92,14 +108,16 @@ Phases (any failure exits nonzero; nothing is caught):
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
 in the main-path run, max abs error, ms per solve, step or tick of kernel
-and plain version, the bound — the larger of the bytes the call must move
+(K1–K4: its device time from a torch.profiler trace, and in ``call_ms`` the
+wrapper call's, CUDA events around it) and plain version, the bound — the larger of the bytes the call must move
 over the card's memory rate and its operations over the fp32 rate, counted
-over the poses and edges each block solve or robot step needs, with which
+over the poses and edges each block solve or robot step needs (K1 also
+the world's edges outside its window, for the world's cost), with which
 of the two bounds it — and the library call's time, null: no single
-PyTorch call computes these functions; K2 and K4 also their
-cluster, shared memory per CTA and ptxas registers and stack per (d, r)
-instance; K3 also its whole tick's ms, K4 also K1's full-width ms on the
-same blocks and phase 13's pairs; K5 and K6 their ms at 2,000 steps, their
+PyTorch call computes these functions; K1–K4 also their cluster, shared
+memory per CTA and ptxas registers and stack per (d, r) instance; K1 also
+its ms per robot-mask solve and per tCG, K3 its whole tick's ms, K4 K1's
+ms on the same blocks and phase 13's pairs; K5 and K6 their ms at 2,000 steps, their
 rate and the calibration's), and the line before that the card's name and
 power limit. K1's launches are the
 Parallel main path's, K4's the large world's, K5's and K6's the roofline
@@ -119,6 +137,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from dpgo_ros_tpu_torch.io.synthetic import add_random_loop_closures, generate_world
 from dpgo_ros_tpu_torch.types import EdgeType, MeasurementBatch, PoseGraphData
@@ -146,6 +165,7 @@ from dpgo_ros_tpu_torch.utils.work import (
     block_work,
     bound,
     edge_bytes,
+    outside_work,
     rtr_flops,
     solve_bytes,
     tick_bytes,
@@ -170,16 +190,25 @@ UNIFORM_SCHED = [3, 0, 4, 1, 0, 2, 4, 3, 1, 2]
 # replaced (one 256-thread block; PERF.md §6, NVIDIA H100 80GB HBM3, 700 W),
 # printed beside this run's times on the timing lines only
 ONE_BLOCK_K2_MS, ONE_BLOCK_K4_MS = 18.945, 7.672
+# ms per K1 solve (sphere2500 robot blocks) and per K3 launch (asapp_demo)
+# of the one-block designs (PERF.md §6), printed the same way
+ONE_BLOCK_K1_MS, ONE_BLOCK_K3_MS = 10.943, 0.3289
 # K3 vs plain over 20 chained fp32 ticks: X and the ring buffer within
 # TOL_TICK_X of max |X|, the per-tick movement history within rel
 # TOL_TICK_MOVED (sum orders differ; the ticks are contractive RGD steps)
 TOL_TICK_X, TOL_TICK_MOVED = 1e-4, 1e-3
 
 
+# template instances per cluster kernel: 16 (d, r) pairs, K3's twice (with
+# and without the preconditioner)
+CLUSTER_INSTANCES = {fused_rtr.SOURCE: 16, fused_rtr.RUN_SOURCE: 16,
+                     fused_rtr.TICK_SOURCE: 32, fused_rtr.WINDOW_SOURCE: 16}
+
+
 def phase_build() -> dict:
     """Every kernel's library, one nvcc per source started together; the
-    ptxas register, stack and spill report of each. Returns {K2's and K4's
-    source stem: ptxas_instances}."""
+    ptxas register, stack and spill report of each. Returns {each cluster
+    kernel's source stem: ptxas_instances}."""
     t = time.time()
     built = fused_rtr.build_all()
     print(f"build: {', '.join(p.name for p, _ in built)} in "
@@ -190,22 +219,23 @@ def phase_build() -> dict:
                 print(f"  ptxas {path.stem}: " + line.strip())
     out = {}
     for src, (path, log) in zip(fused_rtr.ALL_SOURCES, built):
-        if src in (fused_rtr.RUN_SOURCE, fused_rtr.WINDOW_SOURCE):
+        if src in CLUSTER_INSTANCES:
             out[src.stem] = ptxas_instances(log)
             print(f"ptxas {src.stem} per (d, r) instance: "
                   + json.dumps(out[src.stem]), flush=True)
-            assert len(out[src.stem]) == 16, out[src.stem]
+            assert len(out[src.stem]) == CLUSTER_INSTANCES[src], out[src.stem]
     return out
 
 
 def ptxas_instances(log: str) -> dict:
     """{"d3r5": {"stack": bytes, "registers": n}, ...}: each template
-    instance of a cluster kernel in a ptxas report."""
+    instance of a cluster kernel in a ptxas report (K3's keys also name the
+    preconditioner flag: "d3r5p1")."""
     out, cur = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?ILi(\d)ELi(\d)E", line)
+        m = re.search(r"Compiling entry function '\S*?ILi(\d)ELi(\d)E(Lb(\d)E)?", line)
         if m:
-            cur = out.setdefault(f"d{m[1]}r{m[2]}", {})
+            cur = out.setdefault(f"d{m[1]}r{m[2]}" + (f"p{m[4]}" if m[4] else ""), {})
             continue
         if cur is not None:
             for key, pat in (("stack", r"(\d+) bytes stack frame"),
@@ -216,10 +246,14 @@ def ptxas_instances(log: str) -> dict:
     return out
 
 
-def launch_shape(w: hbm_rtr.Windows, d: int, r: int) -> dict:
+def launch_shape(w: hbm_rtr.Windows, d: int, r: int, tick: bool = False) -> dict:
     """The cluster one launch on the windows ``w`` takes: CTAs, the largest
-    slice and the dynamic shared memory of each CTA (0 when the owner-only
-    vectors live in the workspace)."""
+    slice and the dynamic shared memory of each CTA (K1, K2, K4: the
+    owner-only vectors, 0 when they live in the workspace; K3, ``tick``:
+    the slice's P⁻¹), and for K3 the clusters of one launch."""
+    if tick:
+        return {"clusters": w.num_rows, "cluster": w.cluster, "threads": 256,
+                "slice_max": w.slice_max, "smem_bytes_per_cta": 4 * (d + 1) ** 2 * w.slice_max}
     lib = fused_rtr._library(fused_rtr.WINDOW_SOURCE)
     return {"cluster": w.cluster, "threads": 256, "slice_max": w.slice_max,
             "smem_bytes_per_cta": int(lib.dpgo_rtr_window_smem_bytes(d, r, w.slice_max))}
@@ -272,8 +306,12 @@ def noisy_state(prob: LiftedProblem, gt: np.ndarray, seed: int) -> torch.Tensor:
     return stiefel.retract_polar_ns(f(X), f(V))
 
 
-def solve_cases():
-    """(name, prob, X, mask, Pinv, offsets) for every comparison case."""
+def solve_cases(large: bool = True):
+    """(name, prob, X, mask, Pinv, offsets, windows, row) for every K1
+    case: each world's robot masks (on the robots' windows) and Parallel
+    colour unions (on the colour windows), the sphere's all-ones mask (on
+    the all-robots window) and, with ``large``, two robots of the
+    50,000-pose world."""
     worlds = [
         ("sphere2500", *generate_world("sphere", n=2500, num_robots=5, seed=1)[:2]),
         ("grid3d-10", *generate_world("grid3d", grid_shape=(10, 10, 10),
@@ -285,31 +323,56 @@ def solve_cases():
         prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
         eng = RBCDEngine(prob, cfg)
         Pinv = eng._solver_cache(prob.edges)
-        masks = [(f"robot{k}", eng._masks[k]) for k in range(prob.num_robots)]
-        masks += [(f"color{c}", eng._color_masks[c]) for c in range(eng.num_colors)]
-        for mi, (mname, mask) in enumerate(masks):
+        masks = [(f"robot{k}", eng._masks[k], eng._windows, k)
+                 for k in range(prob.num_robots)]
+        masks += [(f"color{c}", eng._color_masks[c], eng._row_windows, c)
+                  for c in range(eng.num_colors)]
+        if name == "sphere2500":
+            ones = torch.ones(prob.n, device=DEV)
+            masks.append(("all", ones, hbm_rtr.prepare_mask_window(prob, ones), 0))
+        for mi, (mname, mask, w, row) in enumerate(masks):
             X = noisy_state(prob, gt, seed=100 * wi + mi)
-            yield f"{name}/{mname}", prob, X, mask, Pinv, eng._offsets
+            yield f"{name}/{mname}", prob, X, mask, Pinv, eng._offsets, w, row
+    if large:
+        name, prob, X, Pinv, w, _ = large_cases()[0]
+        offs = w.offsets
+        for k in K1_LARGE_ROBOTS:
+            yield f"{name}/robot{k}", prob, X, prob.block_mask(k), Pinv, offs, w, k
 
 
 def phase_compare() -> float:
-    """Kernel vs plain on every case; returns the max abs X error."""
-    worst = 0.0
-    for name, prob, X, mask, Pinv, offs in solve_cases():
-        Xk, sk = fused_rtr.rtr_solve_fused(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs)
+    """K1 vs plain on every case, and K1 twice; returns the max abs X
+    error. Gates: the same TR count, f0, f and X within TOL_F0 / TOL_F /
+    TOL_X, the same updated flags, moved within rtol 1e-3, the second
+    launch bit-identical; the wrapper raises without windows and on a mask
+    that is not its row's block. Returns (max abs X error, {case: launch
+    shape})."""
+    worst, launches, shapes = 0.0, 0, {}
+    before = fused_rtr.LAUNCHES
+    for name, prob, X, mask, Pinv, offs, w, row in solve_cases():
+        kw = dict(windows=w, row=row)
+        Xk, sk = fused_rtr.rtr_solve_fused(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs, **kw)
+        Xk2, sk2 = fused_rtr.rtr_solve_fused(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs, **kw)
+        launches += 2
+        same = torch.equal(Xk, Xk2) and torch.equal(sk, sk2)
         Xp, sp = fused_rtr.rtr_solve_fused_ref(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs)
-        Xk = torch.where(mask > 0, Xk, X)
-        Xp = torch.where(mask > 0, Xp, X)
+        m3 = mask.reshape(-1, 1, 1)
+        Xk = torch.where(m3 > 0, Xk, X)
+        Xp = torch.where(m3 > 0, Xp, X)
         sk, sp = sk.double().cpu().numpy(), sp.double().cpu().numpy()
         err = float((Xk - Xp).abs().max())
         xrel = err / float(Xp.abs().max())
         f0rel = abs(sk[0] - sp[0]) / abs(sp[0])
         frel = abs(sk[1] - sp[1]) / abs(sp[1])
         worst = max(worst, err)
+        shapes[name] = dict(launch_shape(w, prob.d, prob.r), block=int(w.num_poses[row]),
+                            separators=int(w.pose_off[row + 1] - w.pose_off[row]
+                                           - w.num_poses[row]))
         print(
             f"compare {name}: TR {int(sk[4])}/{int(sp[4])} tCG {int(sk[5])}/"
             f"{int(sp[5])} f0 {sk[0]:.7g} rel {f0rel:.2e} f {sk[1]:.7g} rel "
-            f"{frel:.2e} X rel {xrel:.2e} (max abs {err:.2e})", flush=True,
+            f"{frel:.2e} X rel {xrel:.2e} (max abs {err:.2e}); repeat bit-identical "
+            f"{same}; {json.dumps(shapes[name])}", flush=True,
         )
         assert np.isfinite(sk).all(), f"{name}: non-finite stats {sk}"
         assert int(sk[4]) == int(sp[4]), f"{name}: TR iterations differ"
@@ -318,7 +381,20 @@ def phase_compare() -> float:
         upd_k = sk[6 + n_r:6 + 2 * n_r]
         assert np.array_equal(upd_k, sp[6 + n_r:6 + 2 * n_r]), f"{name}: updated flags"
         assert np.allclose(sk[6:6 + n_r], sp[6:6 + n_r], rtol=1e-3, atol=1e-6), name
-    return worst
+        assert same, f"{name}: a second launch differs"
+        assert torch.equal(Xk2[m3[:, 0, 0] == 0], X[m3[:, 0, 0] == 0]), name
+    # the card's wrapper needs the windows, and the mask must be the row's block
+    _, prob, X, mask, Pinv, offs, w, row = next(iter(solve_cases(large=False)))
+    for bad in (dict(), dict(windows=w, row=row + 1)):
+        try:
+            fused_rtr.rtr_solve_fused(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs, **bad)
+        except ValueError as e:
+            print(f"compare: refused as it must be ({e})", flush=True)
+        else:
+            raise AssertionError(f"K1's wrapper took {list(bad)}")
+    assert fused_rtr.LAUNCHES == before + launches
+    fused_rtr.LAUNCHES = before  # comparison launches
+    return worst, shapes
 
 
 def run_cases():
@@ -543,36 +619,75 @@ def _time(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def phase_timing():
-    """Per-solve time of kernel and plain version on the sphere2500 robot
-    masks, same inputs; returns (kernel ms, plain ms, bound (ms, by))."""
-    cases = [c for c in solve_cases() if c[0].startswith("sphere2500/robot")]
+def _kernel_ms(fn, kernel: str, reps: int = 3) -> float:
+    """Device ms per launch of the kernel whose name holds ``kernel`` over
+    ``reps`` calls of ``fn`` after one warm-up, from a torch.profiler trace:
+    the kernel's own time. CUDA events around a call also hold the host's
+    work of the call wherever the card waits for it (a small kernel, a
+    wrapper that reads a check back)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages() if kernel in r.key]
+    count = sum(r.count for r in rows)
+    assert count > 0, f"the trace holds no {kernel} launch"
+    return sum(r.device_time_total for r in rows) / count / 1e3
+
+
+def _time_k1(kind: str):
+    """K1 and its plain version per solve on the sphere2500 ``kind`` masks
+    ("color": the Parallel path's, or "robot"), same inputs; returns (kernel
+    device ms, plain ms, bound (ms, by), kernel ms per tCG iteration, ms
+    per wrapper call)."""
+    cases = [c for c in solve_cases(large=False)
+             if c[0].startswith(f"sphere2500/{kind}")]
     launches_before = fused_rtr.LAUNCHES
 
-    def run_all(fn):
+    def run_all(fn, windowed):
         def go():
-            for _, prob, X, mask, Pinv, offs in cases:
-                fn(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs)
+            for _, prob, X, mask, Pinv, offs, w, row in cases:
+                kw = dict(windows=w, row=row) if windowed else {}
+                fn(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs, **kw)
         return go
 
-    k_ms = _time(run_all(fused_rtr.rtr_solve_fused), 4) / len(cases)
-    p_ms = _time(run_all(fused_rtr.rtr_solve_fused_ref), 1) / len(cases)
-    k2_ms = _time(run_all(fused_rtr.rtr_solve_fused), 4) / len(cases)
-    stats = [fused_rtr.rtr_solve_fused(X, m, P, pr.edges, DEMO_PARAMS, o)[1]
-             for _, pr, X, m, P, o in cases]
+    k_ms = _time(run_all(fused_rtr.rtr_solve_fused, True), 4) / len(cases)
+    p_ms = _time(run_all(fused_rtr.rtr_solve_fused_ref, False), 1) / len(cases)
+    k2_ms = _time(run_all(fused_rtr.rtr_solve_fused, True), 4) / len(cases)
+    dev_ms = _kernel_ms(run_all(fused_rtr.rtr_solve_fused, True), "rtr_block_kernel")
+    stats = [fused_rtr.rtr_solve_fused(X, m, P, pr.edges, DEMO_PARAMS, o, windows=w,
+                                       row=row)[1]
+             for _, pr, X, m, P, o, w, row in cases]
     fused_rtr.LAUNCHES = launches_before  # timing launches are not main path
     tcg = [int(st[5]) for st in stats]
     prob = cases[0][1]
-    work = [block_work(prob, m.reshape(-1).cpu().numpy() > 0) for _, _, _, m, _, _ in cases]
-    flops = np.mean([rtr_flops(nk, Ek, prob.r, prob.d, int(st[4]), int(st[5]))
-                     for (nk, Ek, _), st in zip(work, stats)])
-    nbytes = np.mean([solve_bytes(prob, *w) for w in work])
+    blocks = [m.reshape(-1).cpu().numpy() > 0 for _, _, _, m, *_ in cases]
+    work = [block_work(prob, b) for b in blocks]
+    outside = [outside_work(prob, b) for b in blocks]
+    flops = np.mean([rtr_flops(nk, Ek, prob.r, prob.d, int(st[4]), int(st[5])) + of
+                     for (nk, Ek, _), st, (_, of) in zip(work, stats, outside)])
+    nbytes = np.mean([solve_bytes(prob, *w) + ob for w, (ob, _) in zip(work, outside)])
     bnd = bound(nbytes, flops)
-    print(f"timing per solve (sphere2500 robot blocks, tCG/solve {tcg}): "
-          f"kernel {k_ms:.3f} ms, {k2_ms:.3f} ms (second pass), plain {p_ms:.3f} ms; "
-          f"bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes:.0f} B, {flops:.4g} flop; "
-          f"per block: poses, edges, separator poses {work})")
-    return min(k_ms, k2_ms), p_ms, bnd
+    per_tcg = dev_ms * len(cases) / sum(tcg)
+    print(f"timing per solve (sphere2500 {kind} blocks, tCG/solve {tcg}): "
+          f"kernel {dev_ms:.4f} ms on the device, {per_tcg:.5f} ms per tCG iteration "
+          f"(one block: {ONE_BLOCK_K1_MS} ms per robot solve); per wrapper call "
+          f"{k_ms:.4f} ms, {k2_ms:.4f} ms (second pass; CUDA events, the mask check's "
+          f"read-back included); plain {p_ms:.3f} ms; bound {bnd[0] * 1e3:.4f} us by "
+          f"{bnd[1]} ({nbytes:.0f} B, {flops:.4g} flop; per block: poses, edges, "
+          f"separator poses {work})", flush=True)
+    return dev_ms, p_ms, bnd, per_tcg, min(k_ms, k2_ms)
+
+
+def phase_timing():
+    """K1 per solve on the sphere2500 colour masks (the Parallel path's
+    work: its ms, plain ms and bound go to the kernels line) and on its
+    robot masks."""
+    color = _time_k1("color")
+    robot = _time_k1("robot")
+    return color, robot
 
 
 DPGO_DEMO = ["--demo", "dpgo_demo", "--synthetic", "sphere", "--synthetic_n", "2500",
@@ -667,7 +782,8 @@ def phase_gnc():
 
 def phase_timing_run():
     """K2 ms per step and its plain version's, on the 10-step RoundRobin
-    sphere case of phase 4 (same inputs); returns (kernel ms, plain ms)."""
+    sphere case of phase 4 (same inputs); returns (kernel device ms, plain
+    ms, bound (ms, by), ms per step of a wrapper call)."""
     case = next(c for c in run_cases() if c[0] == "sphere2500/r5/roundrobin")
     _, prob, X, bank, sched, Pinv, adj, offs, w, run = case
     steps = run["it_cap"]
@@ -676,6 +792,7 @@ def phase_timing_run():
     k_ms = _time(go(fused_rtr.rtr_run_fused), 3) / steps
     p_ms = _time(go(fused_rtr.rtr_run_fused_ref), 1) / steps
     k2_ms = _time(go(fused_rtr.rtr_run_fused), 3) / steps
+    dev_ms = _kernel_ms(go(fused_rtr.rtr_run_fused), "rtr_run_kernel") / steps
     tcg = int(go(fused_rtr.rtr_run_fused)()[2][3])
     fused_rtr.RUN_LAUNCHES = launches_before  # timing launches are not main path
     n, r, d, R = prob.n, prob.r, prob.d, prob.num_robots
@@ -693,21 +810,23 @@ def phase_timing_run():
               + edge_bytes(prob.edges.num_edges, d)) / steps
     bnd = bound(nbytes, flops)
     print(f"timing per step (sphere2500, 10 RoundRobin steps, {tcg} tCG): K2 "
-          f"{k_ms:.4f} ms, {k2_ms:.4f} ms (second pass), "
-          f"{min(k_ms, k2_ms) * steps / tcg:.4f} ms per tCG iteration (one block: "
+          f"{dev_ms:.4f} ms on the device, {k_ms:.4f} ms, {k2_ms:.4f} ms per call "
+          f"(CUDA events), {dev_ms * steps / tcg:.4f} ms per tCG iteration (one block: "
           f"{ONE_BLOCK_K2_MS} ms per step); plain {p_ms:.3f} ms; "
           f"bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes:.0f} B, {flops:.4g} flop)")
-    return min(k_ms, k2_ms), p_ms, bnd
+    return dev_ms, p_ms, bnd, min(k_ms, k2_ms)
 
 
 def phase_timing_modes():
-    """Solve seconds of the dpgo_demo path, engine then fused then engine
-    then fused, all warm."""
-    out = {"engine": [], "fused": []}
-    for mode in ("engine", "fused", "engine", "fused"):
-        _, extras, _ = _counted_run(DPGO_DEMO + ["--mode", mode])
-        out[mode].append(extras["timing_sec"]["solve"])
-    print("dpgo_demo solve seconds (warm, engine / fused): "
+    """Solve seconds of the dpgo_demo path, engine, fused and the Parallel
+    rule's engine route (K1), twice in turn, all warm."""
+    runs = {"engine": ["--mode", "engine"], "fused": ["--mode", "fused"],
+            "parallel": ["--update_rule", "Parallel"]}
+    out = {k: [] for k in runs}
+    for key in list(runs) * 2:
+        _, extras, _ = _counted_run(DPGO_DEMO + runs[key])
+        out[key].append(extras["timing_sec"]["solve"])
+    print("dpgo_demo solve seconds (warm, engine / fused / Parallel engine): "
           + json.dumps(out))
     return out
 
@@ -723,6 +842,9 @@ ASAPP_DEMO = ["--demo", "asapp_demo", "--synthetic", "sphere", "--synthetic_n", 
 JAX_ASAPP_COST = 12551.484375
 TOL_ASAPP_COST = 0.01
 TICKS = 20
+# the mid-chunk stop: a free run of this many ticks picks the tolerance,
+# the stopped run goes in chunks of this many
+ASYNC_STOP_TICKS, ASYNC_STOP_CHUNK = 120, 25
 
 
 def _tick_chain(fn, eng: ASAPPEngine, X0, hist0, table, events=None):
@@ -736,9 +858,10 @@ def _tick_chain(fn, eng: ASAPPEngine, X0, hist0, table, events=None):
         if events is not None:
             events.append([torch.cuda.Event(enable_timing=True) for _ in range(2)])
             events[-1][0].record()
+        kw = {"windows": eng._windows} if fn is fused_asapp.asapp_tick_fused else {}
         Xn, m = fn(X, hist, eng._masks, eng._Pinv, eng.problem.edges, table[t],
                    eng.rgd.stepsize, eng.steps_per_tick, eng.rgd.use_preconditioner,
-                   eng._offsets)
+                   eng._offsets, **kw)
         if events is not None:
             events[-1][1].record()
         hist[t % (eng.K + 1)].copy_(X)
@@ -752,45 +875,73 @@ def tick_cases():
     2,500-pose 5-robot sphere from a noisy state and a ring of distinct
     noisy states, K = 3, one fixed (TICKS, R) delay table, 1 or 2 steps per
     tick, with the preconditioner (stepsize 0.2, asapp_demo's) and without
-    (stepsize 5e-6: unpreconditioned steps need one below 1/‖Q‖)."""
-    data, gt, _ = generate_world("sphere", n=2500, num_robots=5, seed=1)
-    prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
-    X0 = noisy_state(prob, gt, seed=300)
-    hist0 = torch.stack([noisy_state(prob, gt, seed=301 + j) for j in range(4)])
-    table = torch.randint(0, 4, (TICKS, 5), generator=torch.Generator().manual_seed(5),
-                          dtype=torch.int32).to(DEV)
-    for steps in (1, 2):
-        for precond, gamma in ((True, 0.2), (False, 5e-6)):
-            cfg = AgentConfig(num_robots=5, asynchronous=True, dtype="float32",
+    (stepsize 5e-6: unpreconditioned steps need one below 1/‖Q‖); then the
+    1,200-pose 4-robot SE(2) ring (d = 2), 1 and 2 preconditioned steps; and
+    the 50,000-pose 16-robot world, 1 preconditioned step (16 clusters of 14
+    CTAs in one launch)."""
+    worlds = [  # (name, world, cases): each world made when its turn comes
+        ("sphere2500", lambda: generate_world("sphere", n=2500, num_robots=5, seed=1)[:2],
+         ((1, True, 0.2), (1, False, 5e-6), (2, True, 0.2), (2, False, 5e-6))),
+        ("se2-ring", lambda: se2_world(1200, 4, seed=3), ((1, True, 0.2), (2, True, 0.2))),
+        ("sphere50k", lambda: generate_world("sphere", n=LARGE_N, num_robots=LARGE_ROBOTS,
+                                             seed=0)[:2], ((1, True, 0.2),))]
+    for wi, (wname, make, cases) in enumerate(worlds):
+        data, gt = make()
+        prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
+        R = prob.num_robots
+        X0 = noisy_state(prob, gt, seed=300 + 10 * wi)
+        hist0 = torch.stack([noisy_state(prob, gt, seed=301 + 10 * wi + j) for j in range(4)])
+        table = torch.randint(0, 4, (TICKS, R), generator=torch.Generator().manual_seed(5),
+                              dtype=torch.int32).to(DEV)
+        for steps, precond, gamma in cases:
+            cfg = AgentConfig(num_robots=R, asynchronous=True, dtype="float32",
                               asynchronous_rate=100.0 * steps, RGD_stepsize=gamma,
                               RGD_use_preconditioner=precond, max_delayed_iterations=3)
-            name = f"sphere2500/steps{steps}/{'precond' if precond else 'plain-rgd'}"
+            name = f"{wname}/steps{steps}/{'precond' if precond else 'plain-rgd'}"
             yield name, ASAPPEngine(prob, cfg), X0, hist0, table
 
 
-def phase_compare_tick() -> float:
-    """K3 vs its plain version over TICKS chained ticks per case; returns
-    the max abs X error. Gates: X and the ring buffer within TOL_TICK_X of
-    max |X|, the movement history within rel TOL_TICK_MOVED."""
-    worst = 0.0
+def phase_compare_tick():
+    """K3 vs its plain version over TICKS chained ticks per case, and the
+    kernel's chain twice; returns (the max abs X error, {world: launch
+    shape}). Gates: X and the ring buffer within TOL_TICK_X of max |X|, the
+    movement history within rel TOL_TICK_MOVED, the second chain
+    bit-identical; the wrapper raises without windows."""
+    worst, shapes, launches = 0.0, {}, 0
     launches_before = fused_asapp.TICK_LAUNCHES
+    k3 = fused_asapp.asapp_tick_fused
     for name, eng, X0, hist0, table in tick_cases():
-        Xk, Hk, mk = _tick_chain(fused_asapp.asapp_tick_fused, eng, X0, hist0, table)
+        Xk, Hk, mk = _tick_chain(k3, eng, X0, hist0, table)
+        Xk2, Hk2, mk2 = _tick_chain(k3, eng, X0, hist0, table)
+        launches += 2 * TICKS
+        same = torch.equal(Xk, Xk2) and torch.equal(Hk, Hk2) and torch.equal(mk, mk2)
         Xp, Hp, mp = _tick_chain(fused_asapp.asapp_tick_fused_ref, eng, X0, hist0, table)
         scale = float(Xp.abs().max())
         err = float((Xk - Xp).abs().max())
         herr = float((Hk - Hp).abs().max())
         mrel = _rel(mk, mp)
         worst = max(worst, err)
+        shapes[name.split("/")[0]] = launch_shape(eng._windows, eng.problem.d,
+                                                  eng.problem.r, tick=True)
         print(f"tick {name}: X rel {err / scale:.2e} (max abs {err:.2e}) ring rel "
               f"{herr / scale:.2e} movement rel {mrel:.2e} (last tick "
-              f"{float(mp[-1].max()):.4g})", flush=True)
+              f"{float(mp[-1].max()):.4g}); repeat bit-identical {same}; "
+              f"{json.dumps(shapes[name.split('/')[0]])}", flush=True)
         assert torch.isfinite(Xk).all() and torch.isfinite(mk).all(), name
         assert err <= TOL_TICK_X * scale and herr <= TOL_TICK_X * scale, name
         assert mrel <= TOL_TICK_MOVED, name
-    assert fused_asapp.TICK_LAUNCHES == launches_before + 4 * TICKS
+        assert same, f"{name}: a repeated chain differs"
+    _, eng, X0, hist0, table = next(iter(tick_cases()))
+    try:
+        k3(X0, hist0, eng._masks, eng._Pinv, eng.problem.edges, table[0], 0.2, 1, True,
+           eng._offsets)
+    except ValueError as e:
+        print(f"tick: refused as it must be ({e})", flush=True)
+    else:
+        raise AssertionError("K3's wrapper took no windows on the card")
+    assert fused_asapp.TICK_LAUNCHES == launches_before + launches
     fused_asapp.TICK_LAUNCHES = launches_before  # comparison launches
-    return worst
+    return worst, shapes
 
 
 def phase_async_main_path():
@@ -836,6 +987,50 @@ def phase_async_fixed_ticks() -> None:
     assert len(h64) == len(h32) == 51 and rel <= TOL_HIST
 
 
+def phase_async_stop():
+    """The async runner on the card with a tolerance whose stop falls
+    mid-chunk. A free run of ASYNC_STOP_TICKS ticks (tol 0) records every
+    tick's movement; the tolerance is picked from it so that the first tick
+    after which every robot moved less than it is not a chunk's last. The
+    stopped run (chunks of ASYNC_STOP_CHUNK) must end there, its recorded
+    movement be the free run's rows up to it, and its X, ring buffer and
+    generator equal those of a run of exactly that many ticks; the launches
+    run on to the chunk's end (the stopped ticks copy X)."""
+    data, gt, _ = generate_world("sphere", n=2500, num_robots=5, seed=42)
+    prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
+    eng = ASAPPEngine(prob, AgentConfig(num_robots=5, asynchronous=True, dtype="float32",
+                                        asynchronous_rate=100.0, RGD_stepsize=0.2,
+                                        max_delayed_iterations=3))
+    X0 = noisy_state(prob, gt, seed=700)
+    N, chunk = ASYNC_STOP_TICKS, ASYNC_STOP_CHUNK
+    before = fused_asapp.TICK_LAUNCHES
+    _, free = eng.run(X0, num_ticks=N, chunk=N, record=True)
+    M = free["rel_hist"].max(axis=1)  # every robot below tol after tick t iff M[t] < tol
+    stop = None
+    for t in range(N // 3, N - 1):  # a tick that sets a new low, not at a chunk's end
+        if M[t] < M[:t].min() and (t + 1) % chunk:
+            stop = t
+            break
+    assert stop is not None, M
+    tol = float(np.sqrt(M[stop] * M[:stop].min()))  # between the new low and the last
+    st, info = eng.run(X0, num_ticks=N, chunk=chunk, tol=tol, record=True)
+    ref, _ = eng.run(X0, num_ticks=stop + 1, chunk=N)
+    gen = torch.Generator().manual_seed(eng.config.seed)
+    torch.randint(0, eng.K + 1, (stop + 1, 5), generator=gen)
+    launched = fused_asapp.TICK_LAUNCHES - before
+    fused_asapp.TICK_LAUNCHES = before  # not the main path
+    rows = info["rel_hist"]
+    print(f"async stop: tol {tol:.6g}, stop after tick {stop} (chunk {chunk}), ran "
+          f"{info['ticks']} ticks, converged {info['converged']}, rows recorded "
+          f"{rows.shape[0]}, max movement of the last {float(rows[-1].max()):.6g}; K3 "
+          f"launches {launched}", flush=True)
+    assert info["ticks"] == stop + 1 and info["converged"], info["ticks"]
+    assert np.array_equal(rows, free["rel_hist"][:stop + 1])
+    assert torch.equal(st.X, ref.X) and torch.equal(st.hist, ref.hist)
+    assert torch.equal(st.rng, gen.get_state())
+    assert launched == N + min(-(-(stop + 1) // chunk) * chunk, N) + stop + 1, launched
+
+
 def _time_calls(fn, eng, X0, hist0, table, reps: int) -> float:
     """ms per call of ``fn`` alone (CUDA events around each call, the ring
     write outside them) over ``reps`` TICKS-tick chains after one warm-up."""
@@ -848,10 +1043,11 @@ def _time_calls(fn, eng, X0, hist0, table, reps: int) -> float:
 
 
 def phase_timing_tick():
-    """K3 ms per launch and its plain version's per call, over the
+    """K3 ms per launch (on the device, from the profiler) and per wrapper
+    call (CUDA events around it) and its plain version's per call, over the
     TICKS-tick chain of the asapp_demo case (1 step, preconditioned), and
-    the whole tick's (ring write and glue included); returns (kernel ms,
-    plain ms, bound (ms, by), tick ms)."""
+    the whole tick's (ring write and glue included); returns (kernel device
+    ms, plain ms, bound (ms, by), tick ms, ms per wrapper call)."""
     name, eng, X0, hist0, table = next(iter(tick_cases()))
     launches_before = fused_asapp.TICK_LAUNCHES
     k3, ref = fused_asapp.asapp_tick_fused, fused_asapp.asapp_tick_fused_ref
@@ -859,16 +1055,18 @@ def phase_timing_tick():
     p_ms = _time_calls(ref, eng, X0, hist0, table, 1)
     k2_ms = _time_calls(k3, eng, X0, hist0, table, 5)
     tick_ms = _time(lambda: _tick_chain(k3, eng, X0, hist0, table), 5) / TICKS
+    dev_ms = _kernel_ms(lambda: _tick_chain(k3, eng, X0, hist0, table), "asapp_tick_kernel")
     fused_asapp.TICK_LAUNCHES = launches_before  # timing launches are not main path
     prob, precond = eng.problem, eng.rgd.use_preconditioner
     nbytes = tick_bytes(prob, precond)
     flops = tick_flops(prob, eng.steps_per_tick, precond)
     bnd = bound(nbytes, flops)
-    print(f"timing per tick ({name}, {TICKS} ticks): K3 {k_ms:.4f} ms per launch, "
-          f"{k2_ms:.4f} ms (second pass), plain {p_ms:.3f} ms per call; whole tick "
+    print(f"timing per tick ({name}, {TICKS} ticks): K3 {dev_ms:.4f} ms per launch on "
+          f"the device (one block: {ONE_BLOCK_K3_MS} ms), {k_ms:.4f} ms, {k2_ms:.4f} ms "
+          f"per wrapper call (CUDA events), plain {p_ms:.3f} ms per call; whole tick "
           f"with the ring write {tick_ms:.4f} ms; bound {bnd[0] * 1e3:.4f} us by "
           f"{bnd[1]} ({nbytes:.0f} B, {flops:.4g} flop)")
-    return min(k_ms, k2_ms), p_ms, bnd, tick_ms
+    return dev_ms, p_ms, bnd, tick_ms, min(k_ms, k2_ms)
 
 
 def phase_timing_async():
@@ -890,11 +1088,12 @@ def phase_timing_async():
 # (scripts/bench_scale_hbm.py), 50,000 poses, 99,775 edges, 16 robots
 LARGE_N, LARGE_ROBOTS, LARGE_LOOPS = 50000, 16, 1000
 K4_ROBOTS = (0, 5, 10, 15)
+K1_LARGE_ROBOTS = (0, 10)  # K1 against its plain version (full-width at 50k)
 # K4 vs plain (fp32 on the card; sum orders differ, the TR decisions must
 # not): X within TOL_K4_X of max |X|, f − f0 within rel TOL_K4_DF; K4 vs
-# K1 full-width (window sums against 100k-edge sums): gn and f − f0 within
-# rel TOL_K4_K1, X within TOL_K4_X of max |X|; the two routes' sweep
-# histories within rel TOL_SWEEP
+# K1 (on the same window; K1's f adds the world's edges outside it): gn and
+# f − f0 within rel TOL_K4_K1, X within TOL_K4_X of max |X|; the two
+# routes' sweep histories within rel TOL_SWEEP
 TOL_K4_X, TOL_K4_DF, TOL_K4_K1, TOL_SWEEP = 1e-4, 1e-4, 1e-3, 1e-3
 # bench_scale_hbm.py's settings, capped at 10 sweeps
 LARGE = ["--synthetic", "sphere", "--synthetic_n", str(LARGE_N), "--num_robots",
@@ -947,8 +1146,8 @@ def _df_rel(a, b) -> float:
 
 
 def phase_compare_window():
-    """K4 vs its plain version and vs K1 full-width under the robot's mask
-    on every large and rank case; returns (the max abs X error against the
+    """K4 vs its plain version and vs K1 (on the same robot window) on
+    every large and rank case; returns (the max abs X error against the
     plain version, {case: launch shape}). Gates: the same TR and tCG
     counts, X within TOL_K4_X of max |X|, f − f0 within rel TOL_K4_DF
     (plain) or TOL_K4_K1 (K1, with gn), every pose outside the block
@@ -968,7 +1167,8 @@ def phase_compare_window():
             launches += 2
             same = torch.equal(Xk, Xk2) and torch.equal(sk, sk2)
             Xp, sp = hbm_rtr.rtr_solve_hbm_ref(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
-            X1, s1 = fused_rtr.rtr_solve_fused(X, mask, Pinv, prob.edges, DEMO_PARAMS)
+            X1, s1 = fused_rtr.rtr_solve_fused(X, mask, Pinv, prob.edges, DEMO_PARAMS,
+                                               windows=w, row=k)
             X1 = torch.where(mask > 0, X1, X)
             sk, sp, s1 = (v.double().cpu().numpy() for v in (sk, sp, s1))
             scale = float(Xp.abs().max())
@@ -1040,8 +1240,8 @@ def phase_large_main_path(tmp: str):
 
 def phase_large_sweep() -> None:
     """One sweep of 16 RoundRobin updates (tol 0) on the CLI's large world
-    from one Odometry state: K4 on windows, then K1 full-width
-    (``SEQUENTIAL_ON_WINDOWS`` off); cost and rel-change histories within
+    from one Odometry state: K4, then K1 (``SEQUENTIAL_ON_WINDOWS`` off),
+    both on the robots' windows; cost and rel-change histories within
     TOL_SWEEP."""
     data, _, _ = generate_world("sphere", n=LARGE_N, num_robots=LARGE_ROBOTS, seed=42)
     prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
@@ -1064,7 +1264,7 @@ def phase_large_sweep() -> None:
     rrob = _rel(torch.tensor(np.stack(h4["rel_change_robots"])),
                 torch.tensor(np.stack(h1["rel_change_robots"])))
     print(f"large sweep: cost {float(st0.cost):.7g} -> {h4['cost'][-1]:.7g} (K4), "
-          f"{h1['cost'][-1]:.7g} (K1 full-width); history rel: cost {crel:.2e}, "
+          f"{h1['cost'][-1]:.7g} (K1); history rel: cost {crel:.2e}, "
           f"rel change {rrel:.2e}, per robot {rrob:.2e}; solve {i4['total_time_sec']:.3f} s "
           f"(K4) vs {i1['total_time_sec']:.3f} s (K1)", flush=True)
     assert len(h4["cost"]) == len(h1["cost"]) == LARGE_ROBOTS
@@ -1072,10 +1272,10 @@ def phase_large_sweep() -> None:
 
 
 def phase_timing_window():
-    """K4 ms per solve over the 16 blocks of the banded large case, K1
-    full-width per solve on K4_ROBOTS, the plain version per solve over the
-    16 blocks, same inputs; returns (K4 ms, plain ms, bound (ms, by), K1
-    full-width ms)."""
+    """K4 ms per solve over the 16 blocks of the banded large case, K1 (on
+    the same windows) per solve on K4_ROBOTS, the plain version per solve
+    over the 16 blocks, same inputs; returns (K4 device ms, plain ms, bound
+    (ms, by), K4 ms per wrapper call, K1 device ms, K1 ms per call)."""
     _, prob, X, Pinv, w, _ = large_cases()[0]
     before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
     robots = range(LARGE_ROBOTS)
@@ -1084,12 +1284,15 @@ def phase_timing_window():
                   for k in robots]
     ref = lambda: [hbm_rtr.rtr_solve_hbm_ref(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
                    for k in robots]
-    k1 = lambda: [fused_rtr.rtr_solve_fused(X, masks[k], Pinv, prob.edges, DEMO_PARAMS)
+    k1 = lambda: [fused_rtr.rtr_solve_fused(X, masks[k], Pinv, prob.edges, DEMO_PARAMS,
+                                            windows=w, row=k)
                   for k in K4_ROBOTS]
     k_ms = _time(k4, 3) / LARGE_ROBOTS
     p_ms = _time(ref, 1) / LARGE_ROBOTS
-    k1_ms = _time(k1, 1) / len(K4_ROBOTS)
+    k1_ms = _time(k1, 3) / len(K4_ROBOTS)
     k2_ms = _time(k4, 3) / LARGE_ROBOTS
+    dev_ms = _kernel_ms(k4, "rtr_window_kernel")
+    k1_dev_ms = _kernel_ms(k1, "rtr_block_kernel")
     stats = [s.double().cpu().numpy() for _, s in k4()]
     stats1 = [s.double().cpu().numpy() for _, s in k1()]
     hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # timing launches
@@ -1103,23 +1306,25 @@ def phase_timing_window():
     bnd = bound(nbytes, flops)
     km = min(k_ms, k2_ms)
     print(f"timing per solve (sphere50k, 16 robot blocks, tCG/solve {tcg}): K4 "
-          f"{k_ms:.4f} ms, {k2_ms:.4f} ms (second pass), {km / np.mean(tcg):.4f} ms "
-          f"per tCG iteration (one block: {ONE_BLOCK_K4_MS} ms per solve); K1 full-width {k1_ms:.3f} ms on robots {K4_ROBOTS} "
-          f"(tCG {tcg1}, {k1_ms / np.mean(tcg1):.4f} ms per tCG iteration); plain "
+          f"{dev_ms:.4f} ms on the device, {dev_ms / np.mean(tcg):.4f} ms per tCG "
+          f"iteration (one block: {ONE_BLOCK_K4_MS} ms per solve), {k_ms:.4f} ms, "
+          f"{k2_ms:.4f} ms per wrapper call (CUDA events); K1 {k1_dev_ms:.4f} ms on the "
+          f"device, {k1_ms:.4f} ms per call on robots {K4_ROBOTS} "
+          f"(tCG {tcg1}, {k1_dev_ms / np.mean(tcg1):.4f} ms per tCG iteration); plain "
           f"{p_ms:.3f} ms; bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes:.0f} B, "
           f"{flops:.4g} flop; per block: poses, edges, separator poses "
           f"{sorted(set(work))})")
-    return km, p_ms, bnd, k1_ms
+    return dev_ms, p_ms, bnd, km, k1_dev_ms, k1_ms
 
 
-# K4 against K1 full-width per block solve, below the large world: the
+# K4 against K1 (on the same window) per block solve, below the large world: the
 # dpgo_demo world (2,500 poses, 5 robots) and worlds whose block is the
 # whole world (1 robot) or most of it; (n, robots)
 GATE_WORLDS = ((2500, 5), (2500, 1), (2500, 2), (10000, 4), (20000, 8))
 
 
 def phase_gate_sweep():
-    """K4 and K1 full-width ms per block solve on the same inputs (noisy
+    """K4 and K1 ms per block solve on the same inputs and windows (noisy
     state, the same robots, up to 4 per world) for every GATE_WORLDS
     world; returns {world: (K4 ms, K1 ms)}."""
     before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
@@ -1136,7 +1341,8 @@ def phase_gate_sweep():
         k4 = lambda: [hbm_rtr.rtr_solve_hbm(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
                       for k in robots]
         k1 = lambda: [fused_rtr.rtr_solve_fused(X, masks[k], Pinv, prob.edges,
-                                                DEMO_PARAMS) for k in robots]
+                                                DEMO_PARAMS, windows=w, row=k)
+                      for k in robots]
         t4 = min(_time(k4, 2), _time(k4, 2)) / len(robots)
         t1 = min(_time(k1, 2), _time(k1, 2)) / len(robots)
         s4 = [s.double().cpu().numpy() for _, s in k4()]
@@ -1145,7 +1351,7 @@ def phase_gate_sweep():
         name = f"sphere{n}/{R}"
         out[name] = (t4, t1)
         print(f"gate {name}: window poses {w.max_poses} of {n}, K4 {t4:.3f} ms, K1 "
-              f"full-width {t1:.3f} ms per solve (K1/K4 {t1 / t4:.3f}); tCG "
+              f"{t1:.3f} ms per solve (K1/K4 {t1 / t4:.3f}); tCG "
               f"{tcg4} / {tcg1}", flush=True)
         assert tcg4 == tcg1, name
     hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # timing launches
@@ -1264,9 +1470,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     ptxas = _phase("build", phase_build)
-    max_err = _phase("K1 vs plain", phase_compare)
+    max_err, k1_shapes = _phase("K1 vs plain", phase_compare)
     run_err, run_shapes = _phase("K2 vs plain", phase_compare_run)
-    tick_err = _phase("K3 vs plain", phase_compare_tick)
+    tick_err, tick_shapes = _phase("K3 vs plain", phase_compare_tick)
     window_err, window_shapes = _phase("K4 vs plain and K1", phase_compare_window)
     with tempfile.TemporaryDirectory() as tmp:
         _, engine_summary = _phase("engine main path", phase_main_path, tmp, "RoundRobin")
@@ -1276,14 +1482,15 @@ def main() -> int:
     run_launches = _phase("fused main path", phase_fused_main_path, engine_summary)
     tick_launches, _, _ = _phase("async main path", phase_async_main_path)
     _phase("async fixed ticks", phase_async_fixed_ticks)
+    _phase("async stop mid-chunk", phase_async_stop)
     _phase("gnc", phase_gnc)
     _phase("large sweep", phase_large_sweep)
-    k1 = _phase("K1 timing", phase_timing)
-    k2 = _phase("K2 timing", phase_timing_run)
-    *k3, tick_ms = _phase("K3 timing", phase_timing_tick)
+    k1, k1_robot = _phase("K1 timing", phase_timing)
+    *k2, k2_call = _phase("K2 timing", phase_timing_run)
+    *k3, tick_ms, k3_call = _phase("K3 timing", phase_timing_tick)
     _phase("mode timing", phase_timing_modes)
     _phase("async timing", phase_timing_async)
-    *k4, k1_full_ms = _phase("K4 timing", phase_timing_window)
+    *k4, k4_call, k1_window_ms, k1_window_call = _phase("K4 timing", phase_timing_window)
     gate = _phase("K4 vs K1 below the large world", phase_gate_sweep)
     chain_err = _phase("K5/K6 vs plain", phase_compare_chains)
     roof_counts, *cals, _ = _phase("roofline", phase_roofline)
@@ -1291,17 +1498,24 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": [
         _kernel("rtr_block_solve", "dpgo_ros_tpu_torch/csrc/rtr_block.cu",
-                "dpgo_ros_tpu/ops/fused_rtr.py:1092", launches, max_err, *k1),
+                "dpgo_ros_tpu/ops/fused_rtr.py:1092", launches, max_err, *k1[:3],
+                ms_per_tcg=k1[3], call_ms=k1[4], robot_ms=k1_robot[0],
+                robot_plain_ms=k1_robot[1], robot_bound_ms=k1_robot[2][0],
+                robot_ms_per_tcg=k1_robot[3], robot_call_ms=k1_robot[4],
+                launch_shapes=k1_shapes, ptxas=ptxas[fused_rtr.SOURCE.stem]),
         _kernel("rtr_run_fused", "dpgo_ros_tpu_torch/csrc/rtr_run.cu",
                 "dpgo_ros_tpu/ops/fused_rtr.py:1458", run_launches, run_err, *k2,
-                launch_shapes=run_shapes, ptxas=ptxas[fused_rtr.RUN_SOURCE.stem]),
+                call_ms=k2_call, launch_shapes=run_shapes,
+                ptxas=ptxas[fused_rtr.RUN_SOURCE.stem]),
         _kernel("asapp_tick_fused", "dpgo_ros_tpu_torch/csrc/asapp_tick.cu",
                 "dpgo_ros_tpu/ops/fused_asapp.py:200", tick_launches, tick_err, *k3,
-                tick_ms=tick_ms),
+                tick_ms=tick_ms, call_ms=k3_call, launch_shapes=tick_shapes,
+                ptxas=ptxas[fused_rtr.TICK_SOURCE.stem]),
         _kernel("rtr_window_solve", "dpgo_ros_tpu_torch/csrc/rtr_window.cu",
                 "dpgo_ros_tpu/ops/hbm_rtr.py:257", window_launches, window_err, *k4,
                 launch_shapes=window_shapes, ptxas=ptxas[fused_rtr.WINDOW_SOURCE.stem],
-                k1_full_width_ms=k1_full_ms,
+                call_ms=k4_call, k1_window_ms=k1_window_ms,
+                k1_window_call_ms=k1_window_call,
                 k4_k1_ms_by_world={w: list(t) for w, t in gate.items()}),
         *(_kernel(name, "dpgo_ros_tpu_torch/csrc/peak_chains.cu", replaces,
                   roof_counts[k], chain_err[name], *chains[name][:3],

@@ -1,7 +1,9 @@
-// Device code of the cluster window solve, shared by K2 (rtr_run.cu, many
-// solver steps per launch, each on its bank row's window) and K4
-// (rtr_window.cu, one robot's block solve per launch). K1 (rtr_block.cu)
-// and K3 (asapp_tick.cu) stay on rtr_common.cuh.
+// Device code of the cluster window solve, shared by every solver kernel:
+// K1 (rtr_block.cu, one masked block solve per launch on the mask's
+// window, with the world's cost), K2 (rtr_run.cu, many solver steps per
+// launch, each on its bank row's window), K3 (asapp_tick.cu, one ASAPP
+// tick: a cluster per robot, RGD steps on the robot's window) and K4
+// (rtr_window.cu, one robot's block solve per launch).
 //
 // It computes what dpgo_ros_tpu/ops/fused_rtr.py::make_rtr_solve computes
 // inside the Pallas kernels, restricted to a window (the block's poses,
@@ -19,8 +21,9 @@
 // decide the next step. The work per iteration is small (a 3,573-pose
 // window at r = 5 is ~0.3 MB per vector, ~6,500 edges x ~100 flops), so
 // the time goes to the latency of the passes and of the reductions, not
-// to bytes or flops. On one 256-thread block (rtr_common.cuh) every thread
-// walked its ~14 poses serially through ~11 __syncthreads() per iteration.
+// to bytes or flops. On the one 256-thread block of the first design every
+// thread walked its ~14 poses serially through ~11 __syncthreads() per
+// iteration.
 //
 // Design: one launch is a thread-block cluster of up to 16 CTAs on
 // neighbouring SMs (the host picks the size from the window, ~256 poses a
@@ -40,8 +43,8 @@
 // - Hessian-vector product and gradient: the owner of a pose walks its
 //   pull row (the same contributions in the same order as the full-width
 //   kernel) and computes each incident edge's contribution itself from
-//   both endpoints. The (2E+1)-row contribution table of rtr_common.cuh,
-//   its barrier and its second L2 round trip are gone; sums still add in
+//   both endpoints. The first design's (2E+1)-row contribution table, its
+//   barrier and its second L2 round trip are gone; sums still add in
 //   pull-index order, without atomics. An edge's cost is added by the
 //   owner of its source pose.
 // - Reductions: each warp reduces its values with shuffles and one lane
@@ -125,6 +128,7 @@ struct Work {
   float* dl;     // tCG direction delta
   float* own;    // this CTA's owner-only vectors: [v][c][P]
   int P;         // slice capacity: the stride of `own`
+  float* pv;     // P^-1 of the slice ([c][P]); null: its place in `own`
 };
 
 // Floats of a CTA's owner-only region for slices of at most P poses.
@@ -244,6 +248,13 @@ __device__ __forceinline__ void proj(const Blk<DD, RR>& X, const Blk<DD, RR>& V,
     }
     out.v[a][DD] = V.v[a][DD];
   }
+}
+
+// The slice's P^-1: wk.pv (K3 keeps nothing else), else its place after
+// the owner-only vectors and sym(Y^T G).
+template <int DD, int RR>
+__device__ __forceinline__ float* pinv_region(const Work& wk) {
+  return wk.pv ? wk.pv : wk.own + (size_t)(O_NVEC * RR * (DD + 1) + DD * DD) * wk.P;
 }
 
 // P^-1 of local pose li from the owner region
@@ -470,18 +481,23 @@ __device__ __forceinline__ float masked_rgrad_sq(const Win& w, const Work& wk, c
 
 // Phase 1 of a window solve: this CTA's poses of the world's X (into
 // wk.X) and their P⁻¹ (into the owner region), and a cluster-strided
-// share of the window's edge data. The caller passes a cluster barrier
-// before the solve reads them.
+// share of the window's edge data. With `stale` (K3), the separators come
+// from that state instead, into wk.Xt as well: RGD steps write block poses
+// only, so both buffers must hold them. The caller passes a cluster
+// barrier before the solve reads them.
 template <int DD, int RR>
-__device__ __forceinline__ void gather(const Win& w, const World& g, const Work& wk) {
+__device__ __forceinline__ void gather(const Win& w, const World& g, const Work& wk,
+                                       const float* stale = nullptr) {
   constexpr int P2 = (DD + 1) * (DD + 1);
   cg::cluster_group cl = cg::this_cluster();
-  float* Pv = wk.own + (size_t)(O_NVEC * RR * (DD + 1) + DD * DD) * wk.P;
+  float* Pv = pinv_region<DD, RR>(wk);
   for (int i = w.lo + (int)threadIdx.x; i < w.hi; i += THREADS) {
     const int gi = w.poses[i];
+    const bool sep = stale != nullptr && i >= w.nb;
     Blk<DD, RR> Xi;
-    ld_pose<DD, RR>(g.X, gi, Xi);
+    ld_pose<DD, RR>(sep ? stale : g.X, gi, Xi);
     st_pose<DD, RR>(wk.X, i, Xi);
+    if (sep) st_pose<DD, RR>(wk.Xt, i, Xi);
 #pragma unroll
     for (int k = 0; k < P2; ++k) Pv[(size_t)k * wk.P + (i - w.lo)] = g.Pinv[(size_t)gi * P2 + k];
   }
@@ -741,15 +757,16 @@ __device__ __forceinline__ SolveOut solve(const Win& w, Work& wk, const Params& 
   return SolveOut{f0, f, gn0, gn, k, ktot};
 }
 
-// One preconditioned projected-gradient step of the block from wk.X
-// (gathered, behind a cluster barrier): X ← Retr(X, −s · proj(X, proj(X,
-// ∇f) P⁻¹)) on the block poses, into wk.Xt; then wk.X and wk.Xt swap.
-// Separators are not stepped (the caller writes back block poses only).
-template <int DD, int RR>
+// One projected-gradient step of the block from wk.X (gathered, behind a
+// cluster barrier): X ← Retr(X, −s · proj(X, proj(X, ∇f) P⁻¹)) on the
+// block poses, or without PRECOND X ← Retr(X, −s · proj(X, ∇f)), into
+// wk.Xt; then wk.X and wk.Xt swap. Separators are not stepped (the caller
+// writes back block poses only). A second step reads the first's block
+// poses of other CTAs: the caller puts a cluster barrier between.
+template <int DD, int RR, bool PRECOND = true>
 __device__ __forceinline__ void rgd_step(const Win& w, Work& wk, float stepsize) {
-  constexpr int C = RR * (DD + 1);
   const int P = wk.P;
-  const float* Pv = wk.own + (size_t)(O_NVEC * C + DD * DD) * P;
+  const float* Pv = pinv_region<DD, RR>(wk);
   for (int i = w.lo + (int)threadIdx.x; i < w.hi && i < w.nb; i += THREADS) {
     const int li = i - w.lo;
     Blk<DD, RR> Xi, g, z, Xn;
@@ -757,9 +774,13 @@ __device__ __forceinline__ void rgd_step(const Win& w, Work& wk, float stepsize)
     float unused = 0.f;
     pose_egrad<DD, RR, false>(w, wk.edata, wk.X, i, Xi, g, unused);
     proj<DD, RR>(Xi, g, g);
-    float Pl[DD + 1][DD + 1];
-    ld_pinv<DD>(Pv, P, li, Pl);
-    prec_tangent<DD, RR>(Pl, 1.f, Xi, g, z);
+    if constexpr (PRECOND) {
+      float Pl[DD + 1][DD + 1];
+      ld_pinv<DD>(Pv, P, li, Pl);
+      prec_tangent<DD, RR>(Pl, 1.f, Xi, g, z);
+    } else {
+      z = g;
+    }
     scale<DD, RR>(z, -stepsize);
     retract<DD, RR>(Xi, z, Xn);
     st_pose<DD, RR>(wk.Xt, i, Xn);
@@ -767,6 +788,93 @@ __device__ __forceinline__ void rgd_step(const Win& w, Work& wk, float stepsize)
   float* t = wk.X;
   wk.X = wk.Xt;
   wk.Xt = t;
+}
+
+// moved of the row's robots (`robots`, `nrow` of them), KMAX at a time:
+// the block holds their poses in row order (a robot's block bounds from
+// robot_off), and d2[i − w.lo] each of this CTA's block poses' squared
+// displacement. Fixed-order cluster reductions; thread 0 of every CTA
+// writes moved_out[rb] = sqrt(Σ d2) and upd_out[rb] = 1 where given.
+// Called by all threads of all CTAs.
+__device__ __forceinline__ void row_moved(const Win& w, const float* d2, const int* robots,
+                                          int nrow, const int* robot_off, float* red, int& par,
+                                          float* moved_out, float* upd_out) {
+  int lb = 0;
+  for (int jc = 0; jc < nrow; jc += KMAX) {
+    float mv[KMAX];
+    int lo[KMAX], hi[KMAX];
+#pragma unroll
+    for (int q = 0; q < KMAX; ++q) {
+      mv[q] = 0.f;
+      lo[q] = hi[q] = lb;
+      if (jc + q < nrow) {
+        const int rb = robots[jc + q];
+        hi[q] = lb + (robot_off[rb + 1] - robot_off[rb]);
+        lb = hi[q];
+      }
+    }
+    for (int i = w.lo + (int)threadIdx.x; i < w.hi && i < w.nb; i += THREADS) {
+      const float v = d2[i - w.lo];
+#pragma unroll
+      for (int q = 0; q < KMAX; ++q)
+        if (i >= lo[q] && i < hi[q]) mv[q] += v;
+    }
+    cluster_sum<KMAX>(mv, red, par);
+    if (threadIdx.x == 0 && moved_out != nullptr)
+      for (int q = 0; q < KMAX && jc + q < nrow; ++q) {
+        const int rb = robots[jc + q];
+        moved_out[rb] = sqrtf(mv[q]);
+        upd_out[rb] = 1.f;
+      }
+  }
+}
+
+// Whether global pose p lies in one of the row robots' blocks.
+__device__ __forceinline__ bool in_rows(int p, const int* robots, int nrow,
+                                        const int* robot_off) {
+  for (int j = 0; j < nrow; ++j) {
+    const int rb = robots[j];
+    if (p >= robot_off[rb] && p < robot_off[rb + 1]) return true;
+  }
+  return false;
+}
+
+// This thread's share of the cost, at the world's X, of the world's edges
+// with no endpoint in the row robots' blocks (edges strided over the
+// cluster's threads in global order): the part of the world's cost a
+// window solve does not see and does not move. The caller reduces it.
+template <int DD, int RR>
+__device__ __forceinline__ float outside_cost(const World& g, const int64_t* src,
+                                              const int64_t* dst, int E, const int* robots,
+                                              int nrow, const int* robot_off) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int stride = (int)cl.num_blocks() * THREADS;
+  float f = 0.f;
+  for (int e = (int)cl.block_rank() * THREADS + (int)threadIdx.x; e < E; e += stride) {
+    const int s = (int)src[e], t = (int)dst[e];
+    if (in_rows(s, robots, nrow, robot_off) || in_rows(t, robots, nrow, robot_off)) continue;
+    Blk<DD, RR> A, B;
+    ld_pose<DD, RR>(g.X, s, A);
+    ld_pose<DD, RR>(g.X, t, B);
+    const float* Rm = g.R + (size_t)e * DD * DD;
+    const float* tv = g.t + (size_t)e * DD;
+    const float kwe = g.kw[e], twe = g.tw[e];
+#pragma unroll
+    for (int a = 0; a < RR; ++a) {
+#pragma unroll
+      for (int b = 0; b < DD; ++b) {
+        float acc = B.v[a][b];
+#pragma unroll
+        for (int k = 0; k < DD; ++k) acc -= A.v[a][k] * Rm[k * DD + b];
+        f += kwe * (acc * acc);
+      }
+      float r2 = B.v[a][DD] - A.v[a][DD];
+#pragma unroll
+      for (int k = 0; k < DD; ++k) r2 -= A.v[a][k] * tv[k];
+      f += twe * (r2 * r2);
+    }
+  }
+  return f;
 }
 
 // Floats of workspace one launch needs for windows of at most nw poses
@@ -781,7 +889,7 @@ inline long long cluster_workspace_floats(int d, int r, int nw, int ew, int nc, 
 // Whether the owner regions fit in shared memory.
 inline bool own_in_smem(int d, int r, int P) { return 4LL * own_floats(d, r, P) <= SMEM_DYN_MAX; }
 
-inline Work bind_work(float* w, int d, int r, int nw, int ew, int P) {
+__host__ __device__ inline Work bind_work(float* w, int d, int r, int nw, int ew, int P) {
   const size_t C = (size_t)r * (d + 1);
   Work k;
   k.edata = w;
@@ -794,17 +902,20 @@ inline Work bind_work(float* w, int d, int r, int nw, int ew, int P) {
   w += (size_t)nw * C;
   k.own = w;  // the owner regions' base when they live in the workspace
   k.P = P;
+  k.pv = nullptr;
   return k;
 }
 
-// Launch `kern` as one cluster of nc CTAs (cudaLaunchKernelEx with a
-// cluster dimension), dynamic shared memory smem; returns a cudaError_t,
-// or -1 when no cluster of that shape fits on the card (never a smaller
-// launch in its place).
+// Launch `kern` as `clusters` independent clusters of nc CTAs each
+// (cudaLaunchKernelEx with a cluster dimension; CTA b is rank b mod nc of
+// cluster b / nc), dynamic shared memory smem; returns a cudaError_t, or
+// -1 when no cluster of that shape fits on the card (never a smaller
+// launch in its place). Clusters that do not fit at once run in waves.
 template <class A>
-int launch_cluster(void (*kern)(A), const A& args, int nc, size_t smem, cudaStream_t s) {
+int launch_cluster(void (*kern)(A), const A& args, int nc, size_t smem, cudaStream_t s,
+                   int clusters = 1) {
   cudaError_t e;
-  if (nc < 2 || nc > CLUSTER_MAX) return (int)cudaErrorInvalidValue;
+  if (nc < 2 || nc > CLUSTER_MAX || clusters < 1) return (int)cudaErrorInvalidValue;
   if (nc > 8) {
     e = cudaFuncSetAttribute((const void*)kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
@@ -813,7 +924,7 @@ int launch_cluster(void (*kern)(A), const A& args, int nc, size_t smem, cudaStre
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nc, 1, 1);
+  cfg.gridDim = dim3(nc * clusters, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -824,10 +935,10 @@ int launch_cluster(void (*kern)(A), const A& args, int nc, size_t smem, cudaStre
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(&active, (const void*)kern, &cfg);
   if (e != cudaSuccess) return (int)e;
-  if (clusters < 1) return -1;
+  if (active < 1) return -1;
   e = cudaLaunchKernelEx(&cfg, kern, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

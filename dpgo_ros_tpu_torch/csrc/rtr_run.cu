@@ -158,37 +158,8 @@ __global__ void __launch_bounds__(THREADS, 1) rtr_run_kernel(RunArgs a) {
         }
       own[i - w.lo] = d2;
     }
-    // moved of the row's robots, KMAX at a time; the block holds their
-    // poses in row order (these reductions also publish the new X)
-    const int j0 = m0[3], j1 = m1[3];
-    int lb = 0;
-    for (int jc = j0; jc < j1; jc += KMAX) {
-      float mv[KMAX];
-      int lo[KMAX], hi[KMAX];
-#pragma unroll
-      for (int q = 0; q < KMAX; ++q) {
-        mv[q] = 0.f;
-        lo[q] = hi[q] = lb;
-        if (jc + q < j1) {
-          const int rb = a.row_robots[jc + q];
-          hi[q] = lb + (a.robot_off[rb + 1] - a.robot_off[rb]);
-          lb = hi[q];
-        }
-      }
-      for (int i = w.lo + tid; i < w.hi && i < w.nb; i += THREADS) {
-        const float d2 = own[i - w.lo];
-#pragma unroll
-        for (int q = 0; q < KMAX; ++q)
-          if (i >= lo[q] && i < hi[q]) mv[q] += d2;
-      }
-      cluster_sum<KMAX>(mv, red, par);
-      if (tid == 0)
-        for (int q = 0; q < KMAX && jc + q < j1; ++q) {
-          const int rb = a.row_robots[jc + q];
-          moved[rb] = sqrtf(mv[q]);
-          upd[rb] = 1.f;
-        }
-    }
+    // moved of the row's robots (these reductions also publish the new X)
+    row_moved(w, own, a.row_robots + m0[3], m1[3] - m0[3], a.robot_off, red, par, moved, upd);
     __syncthreads();
 
     // neighbour bump and relative change (warp 0 of every CTA, R x R)

@@ -5,29 +5,33 @@ CUDA kernels, and the build of every kernel of the package (K3's wrapper is
 
 K1 ports ``dpgo_ros_tpu/ops/fused_rtr.py::rtr_solve_fused`` (the Pallas
 kernel built by ``_make_rtr_kernel``): one masked RTR block solve per
-launch, on one 256-thread block (``csrc/rtr_block.cu`` on the device code
-of ``csrc/rtr_common.cuh``). K2 ports ``rtr_run_fused``
-(``_make_rtr_multistep_kernel``): many solver steps per launch, with the
-update schedule, the per-robot relative change, termination and the GNC
-weight-round exit inside the kernel; each step solves on its bank row's
-window (``ops/hbm_rtr.py::prepare_row_windows``) on a thread-block cluster
-(``csrc/rtr_run.cu`` on ``csrc/rtr_cluster.cuh``, which K4 shares). The
-sources say what bounds them and how they are laid out. Each is compiled
-with nvcc at first use, from the checkout's sources, into
-``build/dpgo_ros_tpu_torch/`` (keyed by a hash of the source, the shared
-headers and the flags), and bound through a plain C interface with ctypes.
+launch. The mask is a 0/1 union of robots' blocks, and the kernel solves
+the window of that block (``ops/hbm_rtr.py``: ``prepare_row_windows`` for
+robot or colour rows, ``prepare_mask_window`` for a mask) on a
+thread-block cluster, adding the cost of the world's edges outside the
+window so that f0 and f stay the world's (``csrc/rtr_block.cu``). K2
+ports ``rtr_run_fused`` (``_make_rtr_multistep_kernel``): many solver
+steps per launch, with the update schedule, the per-robot relative change,
+termination and the GNC weight-round exit inside the kernel; each step
+solves on its bank row's window (``csrc/rtr_run.cu``). Every solver kernel
+(K1–K4) runs the cluster solve of ``csrc/rtr_cluster.cuh``. The sources
+say what bounds them and how they are laid out. Each is compiled with nvcc
+at first use, from the checkout's sources, into ``build/dpgo_ros_tpu_torch/``
+(keyed by a hash of the source, the shared header and the flags), and
+bound through a plain C interface with ctypes.
 
 :func:`rtr_solve_fused` and :func:`rtr_run_fused` launch their kernel for
-CUDA tensors and raise if it cannot be built or launched; for CPU tensors
-they run the plain versions :func:`rtr_solve_fused_ref` and
-:func:`rtr_run_fused_ref`, built on the ported ``rtr_solve``. No path
-falls back from one to the other.
+CUDA tensors and raise if it cannot be built or launched, or if they are
+given no windows; for CPU tensors they run the plain versions
+:func:`rtr_solve_fused_ref` and :func:`rtr_run_fused_ref`, built on the
+ported ``rtr_solve``, full-width (the same function). No path falls back
+from one to the other.
 
 K1 stats vector (float32, length 6 + 2·R for R robots):
 ``[f0, f, gn0, gn, TR iterations, tCG iterations,
-moved_0..moved_{R-1}, updated_0..updated_{R-1}]`` where moved is the
-robot's masked block displacement ‖(X_new − X)·mask‖_F and updated is the
-largest mask value over its block.
+moved_0..moved_{R-1}, updated_0..updated_{R-1}]`` where f0 and f are the
+world's cost, moved is the robot's masked block displacement
+‖(X_new − X)·mask‖_F and updated is the largest mask value over its block.
 
 K2 stats vector (length 4): ``[cost, iteration, steps taken in this
 launch, tCG iterations of this launch]``.
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -55,8 +60,7 @@ RUN_COST, RUN_ITER, RUN_STEPS, RUN_TCG = range(4)
 MAX_RANK = 8
 
 _PKG = Path(__file__).resolve().parent.parent
-HEADER = _PKG / "csrc" / "rtr_common.cuh"
-CLUSTER_HEADER = _PKG / "csrc" / "rtr_cluster.cuh"  # K2's and K4's solve
+HEADER = _PKG / "csrc" / "rtr_cluster.cuh"  # the cluster solve of K1–K4
 SOURCE = _PKG / "csrc" / "rtr_block.cu"  # K1
 RUN_SOURCE = _PKG / "csrc" / "rtr_run.cu"  # K2
 TICK_SOURCE = _PKG / "csrc" / "asapp_tick.cu"  # K3, wrapped in ops/fused_asapp.py
@@ -88,10 +92,9 @@ def _nvcc() -> str:
 
 def _lib_path(source: Path) -> Path:
     """Library path for ``source``, keyed by a hash of every file it
-    compiles (the source and the shared headers) and the flags."""
+    compiles (the source and the shared header) and the flags."""
     key = hashlib.sha256(
-        source.read_bytes() + HEADER.read_bytes() + CLUSTER_HEADER.read_bytes()
-        + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}_{key}.so"
 
@@ -155,11 +158,9 @@ def _library(source: Path) -> ctypes.CDLL:
             lib.dpgo_rtr_window_smem_bytes.argtypes = [ci] * 3
             lib.dpgo_rtr_window_smem_bytes.restype = ctypes.c_longlong
         elif source == TICK_SOURCE:
-            lib.dpgo_asapp_tick.argtypes = (
-                [ci] * 9 + [vp] * 13 + [cf] + [vp] * 4
-            )
+            lib.dpgo_asapp_tick.argtypes = [ci] * 12 + [vp] * 17 + [cf] + [vp] * 4
             lib.dpgo_asapp_tick.restype = ci
-            lib.dpgo_asapp_tick_workspace_floats.argtypes = [ci] * 5
+            lib.dpgo_asapp_tick_workspace_floats.argtypes = [ci] * 7
             lib.dpgo_asapp_tick_workspace_floats.restype = ctypes.c_longlong
         elif source == RUN_SOURCE:
             lib.dpgo_rtr_run.argtypes = (
@@ -171,10 +172,10 @@ def _library(source: Path) -> ctypes.CDLL:
             lib.dpgo_rtr_run_workspace_floats.restype = ctypes.c_longlong
         else:
             lib.dpgo_rtr_block_solve.argtypes = (
-                [ci] * 6 + [vp] * 14 + [ci, ci] + [cf] * 5 + [vp]
+                [ci] * 11 + [vp] * 19 + [ci, ci] + [cf] * 5 + [vp]
             )
             lib.dpgo_rtr_block_solve.restype = ci
-            lib.dpgo_rtr_block_workspace_floats.argtypes = [ci] * 4
+            lib.dpgo_rtr_block_workspace_floats.argtypes = [ci] * 6
             lib.dpgo_rtr_block_workspace_floats.restype = ctypes.c_longlong
         _libs[source] = lib
     return lib
@@ -198,12 +199,22 @@ def rtr_solve_fused(
     edges: EdgeSet,
     params: RTRParams,
     offsets: Optional[torch.Tensor] = None,
+    *,
+    windows=None,
+    row: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One masked RTR block solve.
 
     X (n, r, d+1), mask (n, 1, 1) or (n,), Pinv (n, d+1, d+1) the damped
     block-Jacobi inverse, ``offsets`` (R+1,) int32 robot block bounds for
-    the per-robot stats (default: one robot). Returns (X_new, stats).
+    the per-robot stats (default: the windows' robots, else one robot).
+    ``windows`` (``hbm_rtr.prepare_row_windows`` / ``prepare_mask_window``
+    of the same problem) and ``row``: the kernel solves row ``row``'s
+    window, so on the card both are required and the mask must be 0/1
+    with its support the row's block (checked with one host read, on
+    either device when given). Returns (X_new, stats): the kernel writes
+    the block into a copy of X, the plain version returns every pose of its
+    full-width solve; the block's poses agree.
 
     The kernel's operand checks (shapes, devices, layouts) run on both
     devices; the float32 requirement only where the kernel runs.
@@ -211,13 +222,51 @@ def rtr_solve_fused(
     if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rtr_solve_fused: unsupported device {X.device}")
     on_card = X.device.type == "cuda"
+    if offsets is None and windows is not None:
+        offsets = windows.offsets
     m, kw, tw, offsets = _checked_operands(
         "rtr_solve_fused", X, mask, Pinv, edges, params, offsets,
         torch.float32 if on_card else X.dtype,
     )
+    if on_card or windows is not None:
+        row = _check_window(X, m, edges, offsets, windows, row)
     if not on_card:
         return rtr_solve_fused_ref(X, m, Pinv, edges, params, offsets)
-    return _launch(X, m, Pinv, edges, params, offsets, kw, tw)
+    return _launch(X, Pinv, edges, params, kw, tw, windows, row)
+
+
+def _check_window(X, m, edges, offsets, windows, row) -> int:
+    """Raise unless ``windows`` holds row ``row`` of this world on X's
+    device, the mask is 0/1 with its support exactly that row's block and
+    ``offsets`` are the windows' robots (one host read); returns the row."""
+    who = "rtr_solve_fused"
+    if windows is None or row is None:
+        raise ValueError(
+            f"{who}: the kernel solves a window: pass windows= and row= "
+            "(hbm_rtr.prepare_row_windows or prepare_mask_window)")
+    if isinstance(row, bool):
+        raise TypeError(f"{who}: row must be an integer")
+    row = operator.index(row)
+    if not 0 <= row < windows.num_rows:
+        raise ValueError(f"{who}: row {row} outside 0..{windows.num_rows - 1}")
+    windows.check(who, X, edges)
+    if offsets.shape != windows.offsets.shape:
+        raise ValueError(
+            f"{who}: offsets for {offsets.shape[0] - 1} robots, the windows' "
+            f"world has {windows.num_robots}")
+    nb, a = int(windows.num_poses[row]), int(windows.pose_off[row])
+    block = windows.poses[a:a + nb].long()
+    inside, off_block, not01, other_offsets = torch.stack([
+        (m > 0).sum(), (m[block] != 1).sum(), ((m != 0) & (m != 1)).sum(),
+        (offsets != windows.offsets).sum(),
+    ]).tolist()
+    if not01:
+        raise ValueError(f"{who}: the kernel takes 0/1 masks only")
+    if inside != nb or off_block:
+        raise ValueError(f"{who}: the mask's support is not row {row}'s block")
+    if other_offsets:
+        raise ValueError(f"{who}: offsets are not the windows' robot bounds")
+    return row
 
 
 def _checked_operands(who, X, mask, Pinv, edges, params, offsets, float_dtype):
@@ -260,23 +309,28 @@ def _checked_operands(who, X, mask, Pinv, edges, params, offsets, float_dtype):
     return m, kw, tw, offsets
 
 
-def _launch(X, m, Pinv, edges, params, offsets, kw, tw):
+def _launch(X, Pinv, edges, params, kw, tw, windows, row):
     global LAUNCHES
-    n, r, dp1 = X.shape
+    _, r, dp1 = X.shape
     d = dp1 - 1
-    E = edges.num_edges
-    num_robots = offsets.shape[0] - 1
+    R = windows.num_robots
+    poses, eids, lsrc, ldst, pull = windows.window(row)
+    robots = windows.robots_of(row)
+    nc, P = windows.cluster, windows.slice_max
     lib = _library(SOURCE)
-    ws = lib.dpgo_rtr_block_workspace_floats(d, r, n, E)
-    X_out = torch.empty_like(X)
-    stats = torch.empty(6 + 2 * num_robots, dtype=torch.float32, device=X.device)
+    ws = lib.dpgo_rtr_block_workspace_floats(
+        d, r, windows.max_poses, windows.max_edges, nc, P)
+    X_out = X.clone()  # the kernel writes the block
+    stats = torch.empty(6 + 2 * R, dtype=torch.float32, device=X.device)
     work = torch.empty(ws, dtype=torch.float32, device=X.device)
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(X.device):  # launch on X's card, in its stream
         rc = lib.dpgo_rtr_block_solve(
-            d, r, n, E, int(edges.pull.shape[1]), num_robots,
-            p(X), p(m), p(Pinv), p(edges.src), p(edges.dst), p(edges.R),
-            p(edges.t), p(kw), p(tw), p(edges.pull), p(offsets),
+            d, r, int(poses.shape[0]), int(eids.shape[0]), int(windows.num_poses[row]),
+            int(pull.shape[1]), nc, P, edges.num_edges, int(robots.shape[0]), R,
+            p(X), p(Pinv), p(edges.R), p(edges.t), p(kw), p(tw),
+            p(edges.src), p(edges.dst), p(poses), p(eids), p(lsrc), p(ldst), p(pull),
+            p(windows.part[row]), p(windows.offsets), p(robots),
             p(X_out), p(stats), p(work),
             int(params.max_iterations), int(params.max_tcg_iterations),
             float(params.gradnorm_tol), float(params.initial_radius),
@@ -284,8 +338,7 @@ def _launch(X, m, Pinv, edges, params, offsets, kw, tw):
             float(params.tcg_theta),
             ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
         )
-    if rc != 0:
-        raise RuntimeError(f"rtr_block_solve launch failed: cudaError {rc}")
+    check_launch("rtr_block_solve", rc, nc)
     LAUNCHES += 1
     return X_out, stats
 
@@ -433,10 +486,7 @@ def _check_row_windows(windows, bank, X, edges) -> None:
     if windows.num_rows != bank.shape[0]:
         raise ValueError(
             f"{who}: {windows.num_rows} windows for {bank.shape[0]} bank rows")
-    if windows.n != X.shape[0] or windows.num_edges != edges.num_edges:
-        raise ValueError(
-            f"{who}: windows of a world of {windows.n} poses and "
-            f"{windows.num_edges} edges, got {X.shape[0]} and {edges.num_edges}")
+    windows.check(who, X, edges)
     for name in ("poses", "edges", "src", "dst", "pull", "meta", "part", "row_robots"):
         ten = getattr(windows, name)
         if ten.device != X.device:

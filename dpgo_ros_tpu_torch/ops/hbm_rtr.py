@@ -1,8 +1,11 @@
 """The windowed block solve (K4) as a hand-written CUDA kernel on a
 gathered window, its plain version and the window tables. The engine runs
 every RoundRobin and Uniform block solve through it (``parallel/rbcd.py``);
-the multi-step kernel K2 solves each step on the same kind of window, one
-per bank row (:func:`prepare_row_windows`).
+the other solver kernels run on the same kind of window: K2 one per bank
+row (:func:`prepare_row_windows`), K1 the window of its mask's block (a
+colour class's row, or :func:`prepare_mask_window`; its windowed plain
+version is :func:`rtr_solve_window_ref`), K3 every robot's
+(:func:`prepare_windows`).
 
 K4 ports ``dpgo_ros_tpu/ops/hbm_rtr.py::rtr_solve_hbm`` (the Pallas kernel
 built by ``_make_hbm_kernel``, with ``prepare_operands`` and
@@ -47,7 +50,7 @@ import numpy as np
 import torch
 
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams, rtr_solve
-from dpgo_ros_tpu_torch.ops import fused_rtr
+from dpgo_ros_tpu_torch.ops import fused_rtr, quadratic
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet, build_pull_index
 
 S_MOVED = 6
@@ -140,6 +143,21 @@ class Windows:
         return (self.poses[a:b], self.edges[c:e], self.src[c:e],
                 self.dst[c:e], self.pull[a:b])
 
+    def check(self, who: str, X: torch.Tensor, edges: EdgeSet) -> None:
+        """Raise unless these are windows of X's world (its poses and
+        edges) on X's device."""
+        if self.n != X.shape[0] or self.num_edges != edges.num_edges:
+            raise ValueError(
+                f"{who}: windows of a world of {self.n} poses and "
+                f"{self.num_edges} edges, got {X.shape[0]} and {edges.num_edges}")
+        if self.poses.device != X.device:
+            raise ValueError(f"{who}: windows on {self.poses.device}, X on {X.device}")
+
+    def robots_of(self, row: int) -> torch.Tensor:
+        """The robots of one row (a view of ``row_robots``)."""
+        a = sum(len(r) for r in self.rows[:row])
+        return self.row_robots[a:a + len(self.rows[row])]
+
 
 def prepare_windows(problem) -> Windows:
     """Every robot's window of ``problem`` (a ``LiftedProblem``), built on
@@ -210,6 +228,26 @@ def prepare_row_windows(problem, rows) -> Windows:
     )
 
 
+def prepare_mask_window(problem, mask) -> Windows:
+    """The window of a mask's block, for callers that hold a mask and no
+    robot rows (the roofline's all-ones mask, the kernel checks): the
+    one-row case of :func:`prepare_row_windows`. ``mask`` (n,) or (n, 1,
+    1), a tensor or an array, must be 0/1 with its support a union of
+    robots' blocks (the blocks K1 solves), else ValueError."""
+    m = np.asarray(torch.as_tensor(mask).detach().cpu().double()).reshape(-1)
+    if m.shape != (problem.n,) or not np.isin(m, (0.0, 1.0)).all():
+        raise ValueError("prepare_mask_window: the mask must be 0/1 over the poses")
+    bounds = np.concatenate([problem.offsets, [problem.n]]).astype(np.int64)
+    csum = np.concatenate([[0.0], np.cumsum(m)])
+    sums = csum[bounds[1:]] - csum[bounds[:-1]]
+    sizes = np.diff(bounds)
+    robots = np.flatnonzero(sums > 0)
+    if robots.size == 0 or not np.array_equal(sums[robots], sizes[robots]):
+        raise ValueError(
+            "prepare_mask_window: the mask's support is not a union of robots' blocks")
+    return prepare_row_windows(problem, [robots])
+
+
 def rtr_solve_hbm(
     X: torch.Tensor,
     robot: int,
@@ -233,15 +271,7 @@ def rtr_solve_hbm(
         "rtr_solve_hbm", X, None, Pinv, edges, params, windows.offsets,
         torch.float32 if on_card else X.dtype,
     )
-    if windows.n != X.shape[0] or windows.num_edges != edges.num_edges:
-        raise ValueError(
-            f"rtr_solve_hbm: windows of a world of {windows.n} poses and "
-            f"{windows.num_edges} edges, got {X.shape[0]} and {edges.num_edges}"
-        )
-    if windows.poses.device != X.device:
-        raise ValueError(
-            f"rtr_solve_hbm: windows on {windows.poses.device}, X on {X.device}"
-        )
+    windows.check("rtr_solve_hbm", X, edges)
     if isinstance(robot, bool):
         raise TypeError("rtr_solve_hbm: robot must be an integer")
     robot = operator.index(robot)
@@ -285,6 +315,40 @@ def _launch(X, robot, Pinv, edges, params, windows, kw, tw):
     return X_out, stats
 
 
+def window_edges(edges: EdgeSet, windows: Windows, row: int) -> EdgeSet:
+    """Row ``row``'s local ``EdgeSet``: its edges' data gathered through
+    their global ids, with the local endpoints and pull index."""
+    _, eids, lsrc, ldst, pull = windows.window(row)
+    el = eids.long()
+    return EdgeSet(
+        src=lsrc.long(), dst=ldst.long(), R=edges.R[el], t=edges.t[el],
+        kappa=edges.kappa[el], tau=edges.tau[el], weight=edges.weight[el],
+        mask=edges.mask[el], is_loop=edges.is_loop[el], pull=pull,
+    )
+
+
+def _solve_window(X, row, Pinv, edges, params, windows):
+    """``rtr_solve`` on row ``row``'s gathered window under its block mask,
+    the block scattered back into a copy of X. Returns (X_out, result,
+    the block's squared displacement per pose)."""
+    nb = int(windows.num_poses[row])
+    pl = windows.window(row)[0].long()
+    local = window_edges(edges, windows, row)
+    Xw = X[pl]
+    m = torch.zeros((pl.shape[0], 1, 1), dtype=X.dtype, device=X.device)
+    m[:nb] = 1.0
+    Xw_new, res = rtr_solve(Xw, local, m, Pinv[pl], params)
+    X_out = X.clone()
+    X_out[pl[:nb]] = Xw_new[:nb]
+    return X_out, res, ((Xw_new[:nb] - Xw[:nb]) ** 2).sum(dim=(-2, -1))
+
+
+def _head(res, dtype, device) -> torch.Tensor:
+    count = lambda v: torch.tensor(float(v), dtype=dtype, device=device)
+    return torch.stack([res.f_init, res.f_opt, res.gradnorm_init, res.gradnorm_opt,
+                        count(res.iterations), count(res.tcg_iterations)])
+
+
 def rtr_solve_hbm_ref(
     X: torch.Tensor,
     robot: int,
@@ -296,23 +360,38 @@ def rtr_solve_hbm_ref(
     """Plain PyTorch version of K4: gather the window's ``EdgeSet``, run
     ``rtr_solve`` on it under the block mask, scatter the block back; the
     same stats vector (in X's dtype). Runs on any device."""
-    poses, eids, lsrc, ldst, pull = windows.window(robot)
-    nb = int(windows.num_poses[robot])
-    pl, el = poses.long(), eids.long()
-    local = EdgeSet(
-        src=lsrc.long(), dst=ldst.long(), R=edges.R[el], t=edges.t[el],
-        kappa=edges.kappa[el], tau=edges.tau[el], weight=edges.weight[el],
-        mask=edges.mask[el], is_loop=edges.is_loop[el], pull=pull,
-    )
-    Xw = X[pl]
-    m = torch.zeros((pl.shape[0], 1, 1), dtype=X.dtype, device=X.device)
-    m[:nb] = 1.0
-    Xw_new, res = rtr_solve(Xw, local, m, Pinv[pl], params)
-    X_out = X.clone()
-    X_out[pl[:nb]] = Xw_new[:nb]
-    moved = torch.sqrt(((Xw_new[:nb] - Xw[:nb]) ** 2).sum())
-    count = lambda v: torch.tensor(float(v), dtype=X.dtype, device=X.device)
-    return X_out, torch.stack([
-        res.f_init, res.f_opt, res.gradnorm_init, res.gradnorm_opt,
-        count(res.iterations), count(res.tcg_iterations), moved,
-    ])
+    X_out, res, d2 = _solve_window(X, robot, Pinv, edges, params, windows)
+    return X_out, torch.cat([_head(res, X.dtype, X.device), torch.sqrt(d2.sum())[None]])
+
+
+def rtr_solve_window_ref(
+    X: torch.Tensor,
+    row: int,
+    Pinv: torch.Tensor,
+    edges: EdgeSet,
+    params: RTRParams,
+    windows: Windows,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of what K1 computes on row ``row``'s window:
+    the solve of :func:`rtr_solve_hbm_ref`, f0 and f raised by the cost of
+    the world's edges with no endpoint in the block (a constant of the
+    solve) to the world's cost, and K1's stats vector (``fused_rtr``'s
+    layout over the windows' robots: moved over each row robot's block,
+    updated 1 for the row's robots). Runs on any device."""
+    X_out, res, d2 = _solve_window(X, row, Pinv, edges, params, windows)
+    outside = torch.ones_like(edges.mask)
+    outside[windows.window(row)[1].long()] = 0.0
+    f_out = quadratic.cost(X, dataclasses.replace(edges, mask=edges.mask * outside))
+    head = _head(res, X.dtype, X.device)
+    head[:2] += f_out
+    R = windows.num_robots
+    bounds = windows.offsets.tolist()
+    moved = torch.zeros(R, dtype=X.dtype, device=X.device)
+    upd = torch.zeros(R, dtype=X.dtype, device=X.device)
+    lb = 0
+    for k in windows.rows[row]:
+        nk = bounds[k + 1] - bounds[k]
+        moved[k] = torch.sqrt(d2[lb:lb + nk].sum())
+        upd[k] = 1.0
+        lb += nk
+    return X_out, torch.cat([head, moved, upd])

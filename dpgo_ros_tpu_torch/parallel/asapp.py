@@ -14,10 +14,14 @@ stops before the first tick at which every robot's per-tick movement is
 below ``asapp_tolerance``.
 
 Each tick is one call of ``fused_asapp.asapp_tick_fused``: one launch of
-the CUDA kernel K3 on a CUDA device (float32 only), its plain version on
-the CPU; the ring write is a copy on the same stream after it. The stop
-test reads the per-robot movement on the host once per tick when a
-tolerance is set (a device-side stop flag is later work).
+the CUDA kernel K3 on a CUDA device (float32 only; each robot on its
+window, built once per engine), its plain version on the CPU; the ring
+write is a copy on the same stream after it. The stop test stays on the
+device, as in the JAX runner's ``lax.while_loop``: a ``live`` flag that K3
+reads (a stopped tick leaves X and the movement as they are), the ring
+write, the recorded movement row and a tick counter predicated on it; the
+host reads the counter once per chunk and rewinds the delay generator to
+the ticks that ran.
 
 Delays come from a ``torch.Generator`` seeded with ``config.seed``, drawn
 on the host as a (ticks, R) int table per chunk (``torch.randint`` tables
@@ -29,6 +33,7 @@ at absolute tick t) — the parity tests hand in the JAX stream that way.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -36,7 +41,7 @@ import torch
 
 from dpgo_ros_tpu_torch.models.local_solvers import RGDParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_asapp, quadratic
+from dpgo_ros_tpu_torch.ops import fused_asapp, hbm_rtr, quadratic
 from dpgo_ros_tpu_torch.utils.config import AgentConfig
 
 
@@ -83,6 +88,11 @@ class ASAPPEngine:
             quadratic.precond_blocks(problem.edges, problem.n)
         ).contiguous()
 
+    @functools.cached_property
+    def _windows(self) -> hbm_rtr.Windows:
+        """Every robot's window (K3's tables), built on the first tick."""
+        return hbm_rtr.prepare_windows(self.problem)
+
     def init_state(self, X0: torch.Tensor, seed: Optional[int] = None) -> ASAPPState:
         X0 = X0.to(dtype=self.dtype, device=self.device).contiguous()
         gen = torch.Generator().manual_seed(
@@ -107,16 +117,21 @@ class ASAPPEngine:
         g0 = self.rgd.stepsize
         return g0 if T0 <= 0 else g0 * T0 / (T0 + tick)
 
+    def _tick(self, X, hist, delays, tick: int, live=None, rel=None):
+        """K3 (or its plain version) for absolute tick ``tick``."""
+        return fused_asapp.asapp_tick_fused(
+            X, hist, self._masks, self._Pinv, self.problem.edges, delays,
+            self.stepsize_at(tick), self.steps_per_tick,
+            self.rgd.use_preconditioner, self._offsets,
+            windows=self._windows, live=live, rel=rel,
+        )
+
     def tick(self, st: ASAPPState, delays: torch.Tensor) -> ASAPPState:
         """One tick with the given (R,) int32 delays on the engine's device:
         K3 (or its plain version), then the ring write of the pre-tick
         state, as its own copy after the tick. ``st.hist`` is updated in
         place; the runners hand in a copy of the caller's."""
-        X_new, moved = fused_asapp.asapp_tick_fused(
-            st.X, st.hist, self._masks, self._Pinv, self.problem.edges, delays,
-            self.stepsize_at(st.tick), self.steps_per_tick,
-            self.rgd.use_preconditioner, self._offsets,
-        )
+        X_new, moved = self._tick(st.X, st.hist, delays, st.tick)
         st.hist[st.tick % (self.K + 1)].copy_(st.X)
         return st._replace(X=X_new, tick=st.tick + 1,
                            rel_change=moved.to(self.dtype))
@@ -134,8 +149,16 @@ class ASAPPEngine:
         engine's generator. ``record_upto > 0`` records each tick's
         movement into ``rel_hist`` ((record_upto, R), NaN rows for ticks not
         run; a new one when None) and the runner returns ``(state,
-        rel_hist)``."""
+        rel_hist)``.
+
+        With ``tol > 0`` the stop is tested on the device (no host read per
+        tick): ``live`` = not every rel change below tol, an int32 scalar
+        carried from tick to tick; a tick after the stop is a no-op (K3
+        copies X, the ring write and the recorded row keep their old
+        values, the tick counter does not move). The host reads the counter
+        at the end of the chunk and rewinds the generator to it."""
         R = self.problem.num_robots
+        Kp1 = self.K + 1
 
         def run(st: ASAPPState, until_tick: int, rel_hist=None, delays=None):
             until = int(until_tick)
@@ -156,17 +179,34 @@ class ASAPPEngine:
             if record_upto and rel_hist is None:
                 rel_hist = torch.full((record_upto, R), float("nan"),
                                       dtype=self.dtype, device=self.device)
-            s = st._replace(hist=st.hist.clone())
+            X, hist, rel = st.X, st.hist.clone(), st.rel_change
+            live = count = None
+            if tol > 0:
+                live = (~(rel < tol).all()).to(torch.int32)
+                count = torch.zeros((), dtype=torch.int32, device=self.device)
             for j in range(ticks):
-                if tol > 0 and bool(torch.all(s.rel_change < tol)):
-                    if delays is None:  # the generator advances by the ticks run
-                        gen.set_state(rng0)
-                        self._draw(gen, j)
-                    break
-                s = self.tick(s, table[j])
-                if record_upto:
-                    rel_hist[s.tick - 1] = s.rel_change
-            s = s._replace(rng=gen.get_state())
+                t = st.tick + j
+                X_new, rel_new = self._tick(X, hist, table[j], t, live,
+                                            None if live is None else rel)
+                rel_new = rel_new.to(self.dtype)
+                ring = hist[t % Kp1]
+                if live is None:
+                    ring.copy_(X)
+                    if record_upto:
+                        rel_hist[t] = rel_new
+                else:
+                    ring.copy_(torch.where(live > 0, X, ring))
+                    if record_upto:
+                        rel_hist[t] = torch.where(live > 0, rel_new, rel_hist[t])
+                    count += live
+                    live = live * (~(rel_new < tol).all()).to(torch.int32)
+                X, rel = X_new, rel_new
+            ran = ticks if count is None else int(count)  # one host read per chunk
+            if ran < ticks and delays is None:  # the generator advances by the ticks run
+                gen.set_state(rng0)
+                self._draw(gen, ran)
+            s = st._replace(X=X, hist=hist, tick=st.tick + ran, rng=gen.get_state(),
+                            rel_change=rel)
             return (s, rel_hist) if record_upto else s
 
         return run

@@ -16,8 +16,8 @@ Two runners drive the same step semantics:
 * :meth:`RBCDEngine.run` (``--mode engine``) — a host loop; each
   Uniform or RoundRobin update is one ``hbm_rtr.rtr_solve_hbm`` call (K4)
   on the robot's gathered window, each Parallel update one
-  ``fused_rtr.rtr_solve_fused`` call (K1) full-width under the colour
-  class's mask.
+  ``fused_rtr.rtr_solve_fused`` call (K1) on the colour class's window
+  (:attr:`RBCDEngine._row_windows`, K2's).
 * :meth:`RBCDEngine.make_fused_run` (``--mode fused``) — one
   ``fused_rtr.rtr_run_fused`` call (K2) per stretch between GNC weight
   rounds (an L2 run is one call), each step on its bank row's window.
@@ -63,10 +63,11 @@ from dpgo_ros_tpu_torch.ops import (
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet, build_pull_index
 
 # Sequential block solves run on the robot's gathered window (K4): on the
-# H100 it beat K1 full-width under the robot's mask on every multi-robot
-# world chip_smoke.py's gate phase times, from 2,500 poses and 2 robots up,
-# and lost by 3 % only where the window is the whole world (1 robot). False
-# runs them full-width (K1), the route the windowed one is held against.
+# H100 it beat K1 (then full-width under the robot's mask) on every
+# multi-robot world chip_smoke.py's gate phase times, from 2,500 poses and
+# 2 robots up, and lost by 3 % only where the window is the whole world (1
+# robot). False runs them on K1, now on the same window with the world's
+# cost, the route the K4 one is held against.
 SEQUENTIAL_ON_WINDOWS = True
 
 
@@ -169,8 +170,9 @@ class RBCDEngine:
 
     @functools.cached_property
     def _row_windows(self) -> hbm_rtr.Windows:
-        """One window per bank row of K2, built on the first fused run:
-        Parallel's colour classes, else the robots' windows (K4's)."""
+        """One window per bank row of K2, built on the first fused run or
+        Parallel update: Parallel's colour classes (K1's too), else the
+        robots' windows (K4's)."""
         if self.config.update_rule != UpdateRule.PARALLEL:
             return self._windows
         rows = [np.flatnonzero(self.robot_colors == c) for c in range(self.num_colors)]
@@ -405,27 +407,30 @@ class RBCDEngine:
             quadratic.precond_blocks(e, self.problem.n)
         ).contiguous()
 
-    def _local_solve(self, st: RBCDState, e, mask, Pinv, robot=None):
+    def _local_solve(self, st: RBCDState, e, mask, Pinv, robot=None, color=None):
         """One masked block solve → (X_new, stats, cost of X_new): K4 on
-        robot ``robot``'s window for a sequential step, K1 full-width under
-        ``mask`` for a Parallel one (each the kernel for CUDA tensors, its
-        plain version for CPU tensors). K4's f is its window's local cost;
-        only block poses move, so the global cost moves by its f − f0."""
+        robot ``robot``'s window for a sequential step, K1 on colour
+        ``color``'s window for a Parallel one (each the kernel for CUDA
+        tensors, its plain version, full-width under ``mask``, for CPU
+        tensors). K4's f is its window's local cost; only block poses move,
+        so the global cost moves by its f − f0. K1's f is the world's."""
         if robot is not None and SEQUENTIAL_ON_WINDOWS:
             X_new, stats = hbm_rtr.rtr_solve_hbm(
                 st.X, robot, Pinv, e, self.rtr_params, self._windows
             )
             dcost = stats[fused_rtr.S_F] - stats[fused_rtr.S_F0]
             return X_new, stats, st.cost + dcost.to(self.dtype)
+        windows, row = ((self._windows, robot) if robot is not None
+                        else (self._row_windows, color))
         Xk, stats = fused_rtr.rtr_solve_fused(
-            st.X, mask, Pinv, e, self.rtr_params, offsets=self._offsets
+            st.X, mask, Pinv, e, self.rtr_params, windows=windows, row=row
         )
         return torch.where(mask > 0, Xk, st.X), stats, stats[fused_rtr.S_F].to(self.dtype)
 
-    def _block_update(self, st: RBCDState, mask, e, Pinv, robot=None):
+    def _block_update(self, st: RBCDState, mask, e, Pinv, robot=None, color=None):
         """One masked block update (no acceleration): (X_new, V_new, stats,
         θ, cost)."""
-        X_new, stats, cost = self._local_solve(st, e, mask, Pinv, robot)
+        X_new, stats, cost = self._local_solve(st, e, mask, Pinv, robot, color)
         return X_new, X_new, stats, st.theta, cost
 
     def _finish_step(self, st: RBCDState, X_new, V_new, stats, theta, cost, mask):
@@ -467,7 +472,9 @@ class RBCDEngine:
         e = self._edges(st.weights)
         mask = self._color_masks[color]
         Pinv = Pinv if Pinv is not None else self._solver_cache(e)
-        return self._finish_step(st, *self._block_update(st, mask, e, Pinv), mask)
+        return self._finish_step(
+            st, *self._block_update(st, mask, e, Pinv, color=color), mask
+        )
 
     def _weight_update_impl(self, st: RBCDState) -> RBCDState:
         """Robust weight round (reference UPDATE_WEIGHT): residuals on the

@@ -15,7 +15,8 @@ with one CUDA GPU:
 3. Sweeps two block-solve kernels under forced budgets
    (:func:`forced_params`: κ = 0, radius 1e8, gradnorm tol 0, so a solve
    runs exactly 3·K tCG iterations) over K ∈ :data:`KS`: K1 under the
-   all-ones mask (the JAX script's mask) and K4 on robot 0's window (the
+   all-ones mask (the JAX script's mask; its window is the whole world,
+   every robot's block and no separators) and K4 on robot 0's window (the
    solve the RoundRobin main path launches). The time per solve is the
    slope over two counts of chained solves (X carried through, CUDA
    events), as the median and spread of several estimates; the tCG count
@@ -145,18 +146,24 @@ def init_state(prob: LiftedProblem, presteps: int = 0):
     Pinv = quadratic.precond_inverse(
         quadratic.precond_blocks(prob.edges, prob.n, 1e-2)).contiguous()
     ones = torch.ones(prob.n, dtype=prob.dtype, device=prob.device)
+    if presteps:
+        w = hbm_rtr.prepare_mask_window(prob, ones)
     for _ in range(presteps):
-        X, _ = fused_rtr.rtr_solve_fused(X, ones, Pinv, prob.edges, REF_PARAMS)
+        X, _ = fused_rtr.rtr_solve_fused(X, ones, Pinv, prob.edges, REF_PARAMS,
+                                         windows=w, row=0)
     return X, Pinv
 
 
 def solvers(prob: LiftedProblem, Pinv: torch.Tensor, kernels):
     """{kernel: (solve(X, params) → (X_new, stats), boolean block mask)}:
-    K1 under the all-ones mask, K4 on robot 0's window."""
+    K1 under the all-ones mask (on the all-robots window), K4 on robot 0's
+    window."""
     out = {}
     if "k1" in kernels:
         ones = torch.ones(prob.n, dtype=prob.dtype, device=prob.device)
-        out["k1"] = (lambda X, p: fused_rtr.rtr_solve_fused(X, ones, Pinv, prob.edges, p),
+        w1 = hbm_rtr.prepare_mask_window(prob, ones)
+        out["k1"] = (lambda X, p: fused_rtr.rtr_solve_fused(X, ones, Pinv, prob.edges, p,
+                                                            windows=w1, row=0),
                      np.ones(prob.n, bool))
     if "k4" in kernels:
         w = hbm_rtr.prepare_windows(prob)

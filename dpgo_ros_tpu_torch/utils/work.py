@@ -54,6 +54,18 @@ def solve_bytes(prob, nk: int, Ek: int, ns: int, stats: int = 0) -> int:
     return 4 * (2 * nk * C + ns * C + nk * D * D + stats) + edge_bytes(Ek, prob.d)
 
 
+def outside_work(prob, mask: np.ndarray) -> Tuple[int, float]:
+    """(bytes, operations) of the world's cost over the edges with no
+    endpoint in the block (K1's constant term, so that its f0 and f are the
+    world's): those edges and the poses outside the window read once; per
+    edge and row of r a residual and its square, 2d² + 4d + 4."""
+    nk, Ek, ns = block_work(prob, mask)
+    Eo = prob.edges.num_edges - Ek
+    C = prob.r * (prob.d + 1)
+    nbytes = edge_bytes(Eo, prob.d) + 4 * C * (prob.n - nk - ns)
+    return nbytes, float(Eo * prob.r * (2 * prob.d * prob.d + 4 * prob.d + 4))
+
+
 # Operation counts from the kernels' algebra: one pass of the linear edge
 # map with its pull-index gather, per edge and row of r: residuals and both
 # contribution rows, 4d² + 4d + 6, then 2 rows of d + 1 adds; per pose:

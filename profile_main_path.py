@@ -4,11 +4,14 @@
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 profile_main_path.py [--mode engine|fused|async] [--top 12]
+    python3 profile_main_path.py --update_rule Parallel
     python3 profile_main_path.py --world sphere50k
 
 Runs the CLI main path (``--demo dpgo_demo --synthetic sphere
---synthetic_n 2500 --device cuda --mode MODE``; for ``async`` the
-``--demo asapp_demo`` path on the same world; with ``--world sphere50k``
+--synthetic_n 2500 --device cuda --mode MODE``; with ``--update_rule
+Parallel`` the engine's Parallel route, one K1 launch per colour update;
+for ``async`` the ``--demo asapp_demo`` path on the same world; with
+``--world sphere50k``
 the large-world engine route, ``--synthetic sphere --synthetic_n 50000
 --num_robots 16`` with Odometry init, RoundRobin and at most 10 sweeps)
 once to build the kernels and load the CUDA libraries, then once more
@@ -19,10 +22,10 @@ From the profiled run's trace it prints:
 * device busy time: the union of the intervals of kernel, memcpy and
   memset events on the card;
 * the device time of the windowed block solve (K4, engine mode's
-  RoundRobin updates), of the full-width block solve (K1, Parallel
-  updates; none here), of the multi-step kernel (K2, fused mode) and of
-  the ASAPP tick kernel (K3, async mode), each with its share of busy
-  time, its launches and its mean per launch;
+  RoundRobin updates), of the colour-window block solve (K1, the Parallel
+  rule's updates), of the multi-step kernel (K2, fused mode) and of the
+  ASAPP tick kernel (K3, async mode), each with its share of busy time,
+  its launches and its mean per launch;
 * the idle share, 1 − busy / wall, where wall is the host time of the
   profiled ``cli.run`` call;
 * the ``--top`` operators by device time.
@@ -86,10 +89,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", choices=["engine", "fused", "async"], default="engine")
     ap.add_argument("--world", choices=list(WORLDS), default="sphere2500")
+    ap.add_argument("--update_rule", choices=["RoundRobin", "Parallel"], default=None,
+                    help="engine mode only; default: the demo's (RoundRobin)")
     ap.add_argument("--top", type=int, default=12)
     a = ap.parse_args(argv)
     if a.world == "sphere50k" and a.mode != "engine":
         ap.error("--world sphere50k profiles the engine route only")
+    if a.update_rule and (a.mode != "engine" or a.world != "sphere2500"):
+        ap.error("--update_rule goes with the sphere2500 engine route only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: torch.cuda.is_available() is false")
     card = subprocess.run(
@@ -104,6 +111,8 @@ def main(argv=None) -> int:
         demo = "asapp_demo" if a.mode == "async" else "dpgo_demo"
         argv = ["--demo", demo] + WORLDS[a.world]
     argv = argv + ["--device", "cuda", "--mode", a.mode]
+    if a.update_rule:
+        argv += ["--update_rule", a.update_rule]
     summary, extras = cli.run(argv)  # build, library loads, allocator warm-up
     print("warm-up run: " + json.dumps(summary), flush=True)
     print("warm-up timing_sec " + json.dumps(extras["timing_sec"]), flush=True)
@@ -129,7 +138,8 @@ def main(argv=None) -> int:
     if not dev:
         raise SystemExit("profile_main_path: the trace holds no device events")
     busy_ms = busy_us(dev) / 1e3
-    out = {"card": card, "mode": a.mode, "world": a.world, "wall_ms": wall_ms,
+    out = {"card": card, "mode": a.mode, "world": a.world,
+           "update_rule": a.update_rule or "demo's", "wall_ms": wall_ms,
            "timing_sec": extras["timing_sec"], "device_busy_ms": busy_ms}
     for key, name in KERNELS.items():
         ev = [e for e in dev if name in e.get("name", "")]
@@ -139,8 +149,8 @@ def main(argv=None) -> int:
                     f"{key}_ms_per_launch": ms / max(len(ev), 1),
                     f"{key}_share_of_busy": ms / busy_ms})
     want = dict.fromkeys(KERNELS, 0)
-    if a.mode == "engine":  # RoundRobin: one K4 launch per block update
-        want["k4"] = extras["block_updates"]
+    if a.mode == "engine":  # one K4 (RoundRobin) or K1 (Parallel) launch per update
+        want["k1" if a.update_rule == "Parallel" else "k4"] = extras["block_updates"]
     elif a.mode == "fused":
         want["k2"] = 1
     else:

@@ -141,9 +141,12 @@ def test_plain_ticks_match_jax_pallas_kernel_fp32(name):
 
 @pytest.mark.parametrize("name,tol", [("sphere256", 2e-2), ("grid3d4", 5e-3)])
 def test_run_stops_at_the_jax_tick(name, tol):
-    """tol > 0: the same stop tick, converged flag and rel-change history as
-    the JAX run, with the JAX delay stream; the port's chunks differ from
-    JAX's (the stop is exact per tick either way)."""
+    """tol > 0: the same stop tick, converged flag, rel-change history, X
+    and ring buffer as the JAX run, with the JAX delay stream; the port's
+    chunks differ from JAX's, and its stop (tested on the device, one host
+    read per chunk) falls inside one of them. JAX's key is the one of
+    exactly the ticks run; the port's own generator rewinds the same way
+    (tests/test_torch_tick_windows.py)."""
     jp, tp, gt = _problems(name, "float64")
     R = tp.num_robots
     cfg = _cfg(R, K=3)
@@ -159,6 +162,12 @@ def test_run_stops_at_the_jax_tick(name, tol):
     assert tinfo["rel_hist"].shape == (jinfo["ticks"], R)
     assert rel_err(tinfo["rel_hist"], jinfo["rel_hist"]) < 1e-8
     assert rel_err(tst.hist.numpy(), jst.hist) < 1e-8
+    assert rel_err(tst.X.numpy(), jst.X) < 1e-8
+    assert tinfo["ticks"] % 37, "the port's stop falls inside a chunk"
+    key = jax.random.PRNGKey(SEED)
+    for _ in range(jinfo["ticks"]):
+        key, _ = jax.random.split(key)
+    assert np.array_equal(np.asarray(jst.key), np.asarray(key))
     assert tinfo["costs"][0] == pytest.approx(jinfo["costs"][0], rel=1e-12)
 
 
@@ -316,7 +325,7 @@ def test_tick_kernel_matches_plain_version_on_card():
     args = (st.X, st.hist, teng._masks, teng._Pinv, tp.edges, delays, 0.2, 2,
             True, teng._offsets)
     launches = fused_asapp.TICK_LAUNCHES
-    X_k, m_k = fused_asapp.asapp_tick_fused(*args)
+    X_k, m_k = fused_asapp.asapp_tick_fused(*args, windows=teng._windows)
     assert fused_asapp.TICK_LAUNCHES == launches + 1
     X_p, m_p = fused_asapp.asapp_tick_fused_ref(*args)
     assert rel_err(X_k.cpu(), X_p.cpu()) < 1e-4

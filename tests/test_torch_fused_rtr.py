@@ -19,7 +19,7 @@ from dpgo_ros_tpu.ops import fused_rtr as j_fused
 from dpgo_ros_tpu.ops import quadratic as j_quad
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams, rtr_solve
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_rtr, quadratic
+from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, quadratic, stiefel
 from torch_parity import noisy_lifted_gt, random_state, rel_err, world
 
 DEMO = dict(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
@@ -172,13 +172,18 @@ def test_kernel_matches_plain_version_on_card():
     tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cuda")
     X = torch.as_tensor(noisy_lifted_gt(gt, 5, seed=16), dtype=torch.float32,
                         device="cuda")
+    # on the manifold, as the solver's iterates: the kernel retracts the
+    # window only, the plain version every pose
+    X = stiefel.retract_polar_ns(X, torch.zeros_like(X))
     mask = torch.as_tensor(_masks(tp, "robot0"), dtype=torch.float32, device="cuda")
     Pinv = quadratic.precond_inverse(quadratic.precond_blocks(tp.edges, tp.n)).contiguous()
     offs = _offsets(tp).cuda()
     launches = fused_rtr.LAUNCHES
-    X_k, s_k = fused_rtr.rtr_solve_fused(X, mask, Pinv, tp.edges, RTRParams(**DEMO), offs)
+    X_k, s_k = fused_rtr.rtr_solve_fused(X, mask, Pinv, tp.edges, RTRParams(**DEMO), offs,
+                                         windows=hbm_rtr.prepare_windows(tp), row=0)
     assert fused_rtr.LAUNCHES == launches + 1
     X_p, s_p = fused_rtr.rtr_solve_fused_ref(X, mask, Pinv, tp.edges, RTRParams(**DEMO), offs)
+    X_p = torch.where(mask > 0, X_p, X)
     assert int(s_k[4]) == int(s_p[4])
     assert float(s_k[1]) == pytest.approx(float(s_p[1]), rel=1e-4)
     assert rel_err(X_k.cpu(), X_p.cpu()) < 1e-4

@@ -258,11 +258,12 @@ def sphere_cpu():
 @pytest.mark.parametrize("case", ["RoundRobin", "Parallel", "RoundRobin/full-width",
                                   "fused", "async-init"])
 def test_routing(sphere_cpu, monkeypatch, case):
-    """RoundRobin solves each block on its window (K4) and Parallel
-    full-width (K1); with ``SEQUENTIAL_ON_WINDOWS`` off RoundRobin is
-    full-width too; --mode fused is K2, on the same robot windows. The
-    windows are built on the first windowed solve or fused run, so an
-    engine that runs none (Parallel, the one the async mode builds for
+    """RoundRobin solves each block on its window (K4) and Parallel on its
+    colour's window (K1, the colour windows); with
+    ``SEQUENTIAL_ON_WINDOWS`` off RoundRobin runs K1 on the robots'
+    windows; --mode fused is K2, on the same robot windows. The robots'
+    windows are built on the first solve or fused run that needs them, so
+    an engine that needs none (Parallel, the one the async mode builds for
     ``initialize``) never builds them."""
     if case == "RoundRobin/full-width":
         monkeypatch.setattr(rbcd, "SEQUENTIAL_ON_WINDOWS", False)
@@ -289,8 +290,10 @@ def test_routing(sphere_cpu, monkeypatch, case):
     eng.run(st, max_iters=3)
     if case == "RoundRobin":
         assert calls == ["prepare_windows"] + ["rtr_solve_hbm"] * 3
-    else:
+    elif case == "Parallel":
         assert calls == ["rtr_solve_fused"] * 3
+    else:
+        assert calls == ["prepare_windows"] + ["rtr_solve_fused"] * 3
 
 
 # ------------------------------------------------- 6. wrapper and build

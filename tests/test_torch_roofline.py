@@ -176,7 +176,8 @@ def test_sweep_row_recovers_the_charged_slope_and_intercept(sphere_state, monkey
     assert row["per_tcg_floor_s"] == pytest.approx(flops / 67e12)
     assert row["per_tcg_floor_attainable_s"] == pytest.approx(flops / 2e13)
     assert row["fraction_of_peak"] == pytest.approx(flops / 67e12 / 1e-4)
-    stats_len = 8 if kernel == "k1" else hbm_rtr.STATS_LEN
+    # K1 on the all-robots window reports every robot's moved and updated
+    stats_len = 6 + 2 * prob.num_robots if kernel == "k1" else hbm_rtr.STATS_LEN
     assert row["hbm_oneshot_s"] == pytest.approx(
         work.solve_bytes(prob, nk, Ek, ns, stats=stats_len) / 3.35e12)
     assert 0 < row["bench_budget_tcg_share"] < 1

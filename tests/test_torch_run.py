@@ -242,7 +242,7 @@ def test_run_build_failure_raises(tmp_path, monkeypatch):
 def test_build_key_hashes_every_compiled_file(tmp_path, monkeypatch):
     """Editing the shared header changes both libraries' names."""
     before = [fused_rtr._lib_path(s) for s in (fused_rtr.SOURCE, fused_rtr.RUN_SOURCE)]
-    hdr = tmp_path / "rtr_common.cuh"
+    hdr = tmp_path / "rtr_cluster.cuh"
     hdr.write_bytes(fused_rtr.HEADER.read_bytes() + b"\n// edited\n")
     monkeypatch.setattr(fused_rtr, "HEADER", hdr)
     after = [fused_rtr._lib_path(s) for s in (fused_rtr.SOURCE, fused_rtr.RUN_SOURCE)]
