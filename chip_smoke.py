@@ -103,7 +103,23 @@ Phases (any failure exits nonzero; nothing is caught):
      other, the K1 (all-ones mask) and K4 (robot 0) forced sweeps running
      3·K tCG iterations in every solve with valid slopes; K1, K4, K5 and K6
      launched;
- 16. time K5 and K6 against their plain versions at 2,000 steps.
+ 16. time K5 and K6 against their plain versions at 2,000 steps;
+ 17. (after 11) drive dpgo_demo with ``--acceleration true`` in engine
+     mode, fused mode and under the Parallel rule, the counters zeroed just
+     before each: K4 (K1 for Parallel) launches == updates + restarts and
+     no K2 launch, cost decrease, the final cost within rel 1e-4 of the
+     JAX CLI's fp32 value and the update count within 2 of its;
+ 18. (after 6's fixed iterations) 30 accelerated RoundRobin steps with a
+     periodic restart every 10, card fp32 (K4 on the auxiliary state V) vs
+     CPU fp64, cost histories within 2e-3;
+ 19. the certificate: ``--certify`` on the accelerated dpgo_demo run; one
+     fp32 X certified on the card and on the CPU (the same verdict, crit
+     residual and min eig within tolerance; Λ, S assembly and ARPACK
+     timed); the fp64 staircase on the card on the 1,000-pose grid3d world
+     (certified at the JAX package's rank and cost, rel 1e-8; a JSON line
+     ``{"certificate": ...}`` before the card line). Phase 12's mode timing
+     also times the accelerated forms. ``phase_fstar`` (the dpgo_demo
+     world's certified f*, ~23 s) is left to probes.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
@@ -118,10 +134,12 @@ PyTorch call computes these functions; K1–K4 also their cluster, shared
 memory per CTA and ptxas registers and stack per (d, r) instance; K1 also
 its ms per robot-mask solve and per tCG, K3 its whole tick's ms, K4 K1's
 ms on the same blocks and phase 13's pairs; K5 and K6 their ms at 2,000 steps, their
-rate and the calibration's), and the line before that the card's name and
+rate and the calibration's, and ``unfused_bound_ms``, their flops at one per
+instruction: half the fp32 FMA peak, since they forbid contraction), and the line before that the card's name and
 power limit. K1's launches are the
 Parallel main path's, K4's the large world's, K5's and K6's the roofline
-path's.
+path's; ``accel_launches`` are K1's on the accelerated Parallel path and
+K4's on the accelerated engine and fused paths.
 """
 
 from __future__ import annotations
@@ -143,9 +161,11 @@ from dpgo_ros_tpu_torch.io.synthetic import add_random_loop_closures, generate_w
 from dpgo_ros_tpu_torch.types import EdgeType, MeasurementBatch, PoseGraphData
 from dpgo_ros_tpu_torch.utils.config import AgentConfig, InitMethod, UpdateRule
 from dpgo_ros_tpu_torch import cli
+from dpgo_ros_tpu_torch.models import certified
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import (
+    certificate,
     fused_asapp,
     fused_rtr,
     hbm_rtr,
@@ -162,6 +182,7 @@ from dpgo_ros_tpu_torch.parallel.rbcd import (
 )
 from dpgo_ros_tpu_torch.scripts import measure_peaks, roofline
 from dpgo_ros_tpu_torch.utils.work import (
+    FP32_FLOPS_PER_S,
     block_work,
     bound,
     edge_bytes,
@@ -819,15 +840,20 @@ def phase_timing_run():
 
 def phase_timing_modes():
     """Solve seconds of the dpgo_demo path, engine, fused and the Parallel
-    rule's engine route (K1), twice in turn, all warm."""
+    rule's engine route (K1), without and with ``--acceleration true``,
+    twice in turn, all warm; with the update counts."""
     runs = {"engine": ["--mode", "engine"], "fused": ["--mode", "fused"],
             "parallel": ["--update_rule", "Parallel"]}
+    runs.update({f"accel-{k}": v + ["--acceleration", "true"] for k, v in runs.items()})
     out = {k: [] for k in runs}
+    updates = {}
     for key in list(runs) * 2:
         _, extras, _ = _counted_run(DPGO_DEMO + runs[key])
         out[key].append(extras["timing_sec"]["solve"])
-    print("dpgo_demo solve seconds (warm, engine / fused / Parallel engine): "
-          + json.dumps(out))
+        updates[key] = (extras["block_updates"], extras["restarts"])
+    print("dpgo_demo solve seconds (warm; engine / fused / Parallel engine, then "
+          "accelerated): " + json.dumps(out) + "; (updates, restarts) "
+          + json.dumps(updates))
     return out
 
 
@@ -1428,7 +1454,11 @@ def phase_roofline():
 def phase_timing_chains():
     """ms per launch of K5 and K6 and of their plain versions at
     CHAIN_TIMING_STEPS steps on the same inputs; returns {name: (kernel ms,
-    plain ms, bound (ms, by), fp32 flop/s of the kernel)}."""
+    plain ms, bound (ms, by), fp32 flop/s of the kernel, the unfused bound
+    ms)}. The chains' arithmetic is a fixed sequence of separately rounded
+    multiplies, adds and subtracts (no FMA), one flop per instruction, so
+    the least time the card can take for them is their flops over half the
+    FMA peak; ``bound`` stays at the published fp32 peak."""
     before = peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES
     n, out = CHAIN_TIMING_STEPS, {}
     for name, (fused, ref, inp, per_elem) in CHAINS.items():
@@ -1441,12 +1471,204 @@ def phase_timing_chains():
         flops = per_elem * peak_chains.NCHAIN * elems * n
         nbytes = 4 * (peak_chains.NCHAIN + 1) * elems  # slabs read, sum written
         bnd = bound(nbytes, flops)
-        out[name] = (km, p_ms, bnd, flops / (km * 1e-3))
+        unfused_ms = flops / (FP32_FLOPS_PER_S / 2) * 1e3
+        out[name] = (km, p_ms, bnd, flops / (km * 1e-3), unfused_ms)
         print(f"timing {name} at {n} steps: kernel {k_ms:.4f} ms, {k2_ms:.4f} ms (second "
               f"pass), {flops / (km * 1e-3) / 1e12:.4f} TFLOP/s; plain {p_ms:.3f} ms; "
-              f"bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes} B, {flops:.4g} flop)")
+              f"bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes} B, {flops:.4g} flop); "
+              f"unfused bound {unfused_ms * 1e3:.4f} us ({100 * unfused_ms / km:.1f} %)")
     peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES = before  # timing launches
     return out
+
+
+# ---------------------------------------------------------------- acceleration
+
+# dpgo_demo with --acceleration true through the JAX CLI on a CPU host (fp32,
+# XLA), per form (updates, final cost); PERF.md has the summaries:
+#   python -m dpgo_ros_tpu.cli --demo dpgo_demo --synthetic sphere \
+#       --synthetic_n 2500 --acceleration true --platform cpu \
+#       [--mode fused | --update_rule Parallel]
+JAX_ACCEL_DEMO = {"engine": (57, 12436.7255859375), "fused": (57, 12437.333984375),
+                  "parallel": (23, 12434.6494140625)}
+# the card's update counts may differ from JAX's by this many (fp32 sum orders
+# at the rel-change tolerance or the safeguard's threshold; PERF.md, PR 8)
+ACCEL_UPDATES_SLACK = 2
+TOL_ACCEL_COST = 1e-4
+# the fixed-iteration comparison: accelerated steps, and a periodic restart
+# every ACCEL_RESTART_INTERVAL of them
+ACCEL_STEPS, ACCEL_RESTART_INTERVAL = 30, 10
+
+
+def phase_accel_main_path(tmp: str):
+    """dpgo_demo with ``--acceleration true`` in engine mode, fused mode and
+    under the Parallel rule, each with the counters zeroed just before: K4
+    (K1 for Parallel) launched once per update and once more per restart,
+    no other kernel (the fused runner leaves K2, as JAX's does), cost
+    decrease, the final cost within TOL_ACCEL_COST of the JAX CLI's and the
+    update count within ACCEL_UPDATES_SLACK of its. Returns {form:
+    (launches, updates, restarts, solve seconds)}."""
+    forms = {"engine": [], "fused": ["--mode", "fused"],
+             "parallel": ["--update_rule", "Parallel"]}
+    out = {}
+    for form, flags in forms.items():
+        prefix = os.path.join(tmp, f"accel-{form}")
+        summary, extras, counts = _counted_run(
+            DPGO_DEMO + ["--acceleration", "true", "--output", prefix] + flags)
+        updates, restarts = extras["block_updates"], extras["restarts"]
+        jax_updates, jax_cost = JAX_ACCEL_DEMO[form]
+        kernel = "k1" if form == "parallel" else "k4"
+        solve = extras["timing_sec"]["solve"]
+        print(f"accelerated main path {form}: " + json.dumps(summary), flush=True)
+        print(f"accelerated main path {form}: launches {counts}, updates {updates}, "
+              f"restarts {restarts} ({100 * restarts / max(updates, 1):.1f} % of steps), "
+              f"initial cost {extras['initial_cost']:.7g}, solve {solve:.4f} s; JAX CLI "
+              f"{jax_updates} updates, {jax_cost}", flush=True)
+        _only(counts, **{kernel: updates + restarts})
+        assert summary["final_cost"] < extras["initial_cost"]
+        assert abs(summary["final_cost"] - jax_cost) <= TOL_ACCEL_COST * jax_cost, form
+        assert abs(updates - jax_updates) <= ACCEL_UPDATES_SLACK, (form, updates)
+        assert math.isfinite(summary["ate_vs_ground_truth"])
+        assert os.path.getsize(prefix + "_global.g2o") > 0
+        out[form] = (counts[kernel], updates, restarts, solve)
+    return out
+
+
+def phase_accel_fixed_iterations() -> None:
+    """ACCEL_STEPS accelerated RoundRobin steps (tol 0, a periodic restart
+    every ACCEL_RESTART_INTERVAL) from one chordal state: card fp32 (K4 on
+    V's robot windows) vs CPU fp64 plain path, cost histories within
+    TOL_HIST; one K4 launch per step and restart. (K1 on V's colour
+    windows is held by the accelerated Parallel main path's cost and
+    update count against the JAX CLI's.)"""
+    data, _, _ = generate_world("sphere", n=2500, num_robots=5, seed=42)
+    base = dict(num_robots=5, update_rule=UpdateRule.ROUND_ROBIN, acceleration=True,
+                restart_interval=ACCEL_RESTART_INTERVAL,
+                local_initialization_method=InitMethod.CHORDAL,
+                relative_change_tolerance=0.0, max_iteration_number=ACCEL_STEPS,
+                RTR_gradnorm_tol=0.5)
+    p64 = LiftedProblem.from_data(data, r=5, dtype=torch.float64, device="cpu")
+    e64 = RBCDEngine(p64, AgentConfig(dtype="float64", **base))
+    s64 = e64.initialize()
+    p32 = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
+    e32 = RBCDEngine(p32, AgentConfig(dtype="float32", **base))
+    s32 = state_from_numpy(state_to_numpy(s64), dtype=torch.float32, device=DEV)
+    _, i64 = e64.run(s64)
+    before = hbm_rtr.LAUNCHES
+    _, i32 = e32.run(s32)
+    launched = hbm_rtr.LAUNCHES - before
+    hbm_rtr.LAUNCHES = before  # not the main path
+    h64, h32 = np.array(i64["history"]["cost"]), np.array(i32["history"]["cost"])
+    rel = float(np.max(np.abs(h32 - h64) / np.abs(h64)))
+    print(f"accelerated fixed {ACCEL_STEPS} iterations: cost {h64[0]:.7g} -> "
+          f"{h64[-1]:.7g} (CPU fp64), {h32[-1]:.7g} (card fp32), max rel history "
+          f"deviation {rel:.2e}; safeguard restarts {i32['restarts']} (card) / "
+          f"{i64['restarts']} (CPU), periodic restarts at every "
+          f"{ACCEL_RESTART_INTERVAL}th step; K4 launches {launched}", flush=True)
+    assert len(h64) == len(h32) == ACCEL_STEPS and rel <= TOL_HIST
+    assert launched == ACCEL_STEPS + i32["restarts"], launched
+
+
+# ---------------------------------------------------------------- certificate
+
+# the JAX package's fp64 staircase on a CPU host, on generate_world("grid3d",
+# grid_shape=(10, 10, 10), num_robots=5, seed=2) (1,000 poses):
+# certified_solve(data) -> certified at rank 5 (ranks tried (5,))
+JAX_GRID_RANK, JAX_GRID_COST = 5, 5518.300320983406
+TOL_STAIRCASE_COST = 1e-8
+# the JAX CLI's fp32 certificate tolerances (dpgo_ros_tpu/cli.py, --certify)
+FP32_CERT = dict(eig_tol=1e-3, crit_tol=3e-2, lanczos_tol=1e-4)
+# card vs CPU certify of one fp32 X: crit residual within rel TOL_CERT_CRIT,
+# min eig within TOL_CERT_EIG · scale (the fp32 Lanczos tolerance)
+TOL_CERT_CRIT, TOL_CERT_EIG = 1e-3, 1e-4
+# the tighter accelerated run whose X passes fp32 criticality
+CERT_RUN = dict(relative_change_tolerance=0.02, RTR_gradnorm_tol=0.05)
+
+
+def phase_certify():
+    """``--certify`` on the accelerated dpgo_demo run on the card (the
+    summary's certificate fields); one fp32 X (an accelerated run to
+    CERT_RUN's tolerances) certified on the card and on the CPU (the same
+    verdict, crit residual and min eig within tolerance), with the time of
+    Λ on the device, of S's assembly and of ARPACK; the fp64 staircase on
+    the card on the 1,000-pose grid (certified at JAX's rank and cost).
+    Returns a dict of the readings."""
+    summary, _, _ = _counted_run(DPGO_DEMO + ["--acceleration", "true", "--certify"])
+    c = summary["certificate"]
+    print("certify main path: " + json.dumps(c), flush=True)
+    assert set(c) == {"certified_global", "min_eig", "crit_residual", "scale"}, c
+    assert math.isfinite(c["crit_residual"]) and c["scale"] > 0
+
+    data, _, _ = generate_world("sphere", n=2500, num_robots=5, seed=42)
+    prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
+    eng = RBCDEngine(prob, AgentConfig(
+        num_robots=5, update_rule=UpdateRule.ROUND_ROBIN, acceleration=True,
+        local_initialization_method=InitMethod.CHORDAL, max_iteration_number=1000,
+        dtype="float32", **CERT_RUN))
+    before = hbm_rtr.LAUNCHES
+    st, info = eng.run()
+    hbm_rtr.LAUNCHES = before  # not the main path
+    X, e = st.X, prob.edges
+    lam_ms = _time(lambda: certificate.lambda_blocks(X, e), 5)
+    Lam = certificate.lambda_blocks(X, e)
+    t = time.time()
+    certificate.s_sparse(X, Lam, e)
+    s_sec = time.time() - t
+    t = time.time()
+    certificate.min_eig_lanczos(X, Lam, e, tol=FP32_CERT["lanczos_tol"])
+    arpack_sec = time.time() - t - s_sec
+    t = time.time()
+    card = certificate.certify(X, e, **FP32_CERT)
+    card_sec = time.time() - t
+    cpu_prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cpu")
+    t = time.time()
+    host = certificate.certify(X.cpu(), cpu_prob.edges, **FP32_CERT)
+    host_sec = time.time() - t
+    crel = abs(card.crit_residual - host.crit_residual) / host.crit_residual
+    eabs = abs(card.min_eig - host.min_eig)
+    print(f"certify fp32 X ({info['iterations']} accelerated updates to {CERT_RUN}, cost "
+          f"{info['final_cost']:.7g}): card {card.is_global} min eig {card.min_eig:.6g} crit "
+          f"{card.crit_residual:.6g} in {card_sec:.3f} s; CPU {host.is_global} min eig "
+          f"{host.min_eig:.6g} crit {host.crit_residual:.6g} in {host_sec:.3f} s; crit rel "
+          f"{crel:.2e}, min eig diff {eabs:.4g} (scale {card.scale:.6g}); Lambda on the card "
+          f"{lam_ms:.4f} ms, S assembly {s_sec:.3f} s, ARPACK {arpack_sec:.3f} s", flush=True)
+    assert card.is_global == host.is_global and card.eigvec is not None
+    assert crel <= TOL_CERT_CRIT and eabs <= TOL_CERT_EIG * card.scale
+
+    grid, _, _ = generate_world("grid3d", grid_shape=(10, 10, 10), num_robots=5, seed=2)
+    t = time.time()
+    res = certified.certified_solve(grid, device=DEV)
+    grid_sec = time.time() - t
+    print(f"certified_solve fp64 on the card (grid3d, 1,000 poses): certified "
+          f"{res.certified} rank {res.rank} (ranks {res.ranks_tried}) cost {res.cost!r} "
+          f"(JAX {JAX_GRID_COST!r}, rel {abs(res.cost - JAX_GRID_COST) / JAX_GRID_COST:.2e}) "
+          f"min eig {res.min_eig:.4g} in {grid_sec:.2f} s", flush=True)
+    assert res.certified and res.rank == JAX_GRID_RANK
+    assert abs(res.cost - JAX_GRID_COST) <= TOL_STAIRCASE_COST * JAX_GRID_COST
+    return {"lambda_ms": lam_ms, "s_assembly_sec": s_sec, "arpack_sec": arpack_sec,
+            "certify_sec": card_sec, "grid_certified_solve_sec": grid_sec}
+
+
+# the JAX package's fp64 staircase on a CPU host on the dpgo_demo world
+# (generate_world("sphere", n=2500, num_robots=5, seed=42)): certified at
+# rank 5 (ranks tried (5,))
+JAX_DEMO_FSTAR = 12428.175793305161
+
+
+def phase_fstar():
+    """The certified f* of the dpgo_demo world: the fp64 staircase on the
+    card, certified at JAX's cost (rel TOL_STAIRCASE_COST). Not run by
+    :func:`main` (~23 s, past its time budget): a probe calls it. Returns
+    (f*, seconds)."""
+    data, _, _ = generate_world("sphere", n=2500, num_robots=5, seed=42)
+    t = time.time()
+    star = certified.certified_solve(data, device=DEV)
+    sec = time.time() - t
+    print(f"certified f* of the dpgo_demo world (sphere, 2,500 poses, seed 42): "
+          f"{star.cost!r}, certified {star.certified} at rank {star.rank} in "
+          f"{sec:.2f} s (fp64 on the card; JAX {JAX_DEMO_FSTAR!r})", flush=True)
+    assert star.certified
+    assert abs(star.cost - JAX_DEMO_FSTAR) <= TOL_STAIRCASE_COST * JAX_DEMO_FSTAR
+    return star.cost, sec
 
 
 def _phase(name, fn, *args):
@@ -1478,7 +1700,10 @@ def main() -> int:
         _, engine_summary = _phase("engine main path", phase_main_path, tmp, "RoundRobin")
         launches, _ = _phase("Parallel main path", phase_main_path, tmp, "Parallel")
         window_launches, _, _ = _phase("large main path", phase_large_main_path, tmp)
+        accel = _phase("accelerated main path", phase_accel_main_path, tmp)
     _phase("fixed iterations", phase_fixed_iterations)
+    _phase("accelerated fixed iterations", phase_accel_fixed_iterations)
+    cert = _phase("certificate", phase_certify)
     run_launches = _phase("fused main path", phase_fused_main_path, engine_summary)
     tick_launches, _, _ = _phase("async main path", phase_async_main_path)
     _phase("async fixed ticks", phase_async_fixed_ticks)
@@ -1495,6 +1720,7 @@ def main() -> int:
     chain_err = _phase("K5/K6 vs plain", phase_compare_chains)
     roof_counts, *cals, _ = _phase("roofline", phase_roofline)
     chains = _phase("K5/K6 timing", phase_timing_chains)
+    print(json.dumps({"certificate": cert}))
     print(card)
     print(json.dumps({"kernels": [
         _kernel("rtr_block_solve", "dpgo_ros_tpu_torch/csrc/rtr_block.cu",
@@ -1502,6 +1728,7 @@ def main() -> int:
                 ms_per_tcg=k1[3], call_ms=k1[4], robot_ms=k1_robot[0],
                 robot_plain_ms=k1_robot[1], robot_bound_ms=k1_robot[2][0],
                 robot_ms_per_tcg=k1_robot[3], robot_call_ms=k1_robot[4],
+                accel_launches=accel["parallel"][0],
                 launch_shapes=k1_shapes, ptxas=ptxas[fused_rtr.SOURCE.stem]),
         _kernel("rtr_run_fused", "dpgo_ros_tpu_torch/csrc/rtr_run.cu",
                 "dpgo_ros_tpu/ops/fused_rtr.py:1458", run_launches, run_err, *k2,
@@ -1515,11 +1742,13 @@ def main() -> int:
                 "dpgo_ros_tpu/ops/hbm_rtr.py:257", window_launches, window_err, *k4,
                 launch_shapes=window_shapes, ptxas=ptxas[fused_rtr.WINDOW_SOURCE.stem],
                 call_ms=k4_call, k1_window_ms=k1_window_ms,
+                accel_launches={f: accel[f][0] for f in ("engine", "fused")},
                 k1_window_call_ms=k1_window_call,
                 k4_k1_ms_by_world={w: list(t) for w, t in gate.items()}),
         *(_kernel(name, "dpgo_ros_tpu_torch/csrc/peak_chains.cu", replaces,
                   roof_counts[k], chain_err[name], *chains[name][:3],
                   steps=CHAIN_TIMING_STEPS, tflops=chains[name][3] / 1e12,
+                  unfused_bound_ms=chains[name][4],
                   calibrated_tflops=cal["fp32_attainable_flops"] / 1e12)
           for name, k, replaces, cal in (
               ("peak_chain", "k5", "scripts/measure_peaks.py:60", cals[0]),

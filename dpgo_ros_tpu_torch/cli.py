@@ -25,6 +25,12 @@ colour class's window) per stretch between GNC weight rounds (one launch
 in all for an L2 run); ``--mode async`` (or ``--asynchronous true``
 in engine mode) runs the ASAPP ticks, one launch of the tick kernel (K3)
 per tick. On ``--device cpu`` all run the kernels' plain versions.
+``--acceleration true`` runs Nesterov-accelerated RBCD: each update one
+block-solve launch (K4, or K1 for Parallel) against the extrapolated
+state, one more where the step restarts; in ``--mode fused`` too, which
+then leaves K2 for a loop of such steps, as the JAX CLI's does.
+``--certify`` runs the dual certificate on the final iterate (the
+``certificate`` key of the summary).
 
 Examples::
 
@@ -36,6 +42,9 @@ Examples::
       --num_robots 2 --device cpu --dtype float64
   python -m dpgo_ros_tpu_torch.cli --demo asapp_demo --synthetic sphere \\
       --synthetic_n 256 --device cpu
+  python -m dpgo_ros_tpu_torch.cli --demo dpgo_demo --synthetic sphere \\
+      --synthetic_n 500 --acceleration true --certify --device cpu \\
+      --dtype float64
 
 Prints one JSON summary line on stdout (``mode``, ``iterations``,
 ``final_cost``, ``wall_time_sec``; ``gnc_stats`` for robust costs; for
@@ -112,6 +121,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["Odometry", "Chordal", "GNC_TLS"], default="Odometry")
     p.add_argument("--update_rule", choices=["Uniform", "RoundRobin", "Parallel"],
                    default="Uniform")
+    p.add_argument("--acceleration", type=_bool, default=False,
+                   help="Nesterov-accelerated RBCD: each block solved against "
+                        "the extrapolated auxiliary state, with adaptive and "
+                        "periodic restarts")
+    p.add_argument("--restart_interval", type=int, default=50,
+                   help="periodic momentum restart of the accelerated mode, "
+                        "in iterations")
     p.add_argument("--multirobot_initialization", type=_bool, default=True,
                    help="align the robots' local trajectories into one frame "
                         "through their shared loop closures")
@@ -156,6 +172,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="draw the loop closures, coloured by final weight, in "
                         "the --output HTML view")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--certify", action="store_true",
+                   help="after the solve, run the dual certificate on the final "
+                        "iterate: reports whether it is the certified global "
+                        "optimum of the final-weights problem, min eig(S) and "
+                        "the criticality residual (fp64 runs certify sharply, "
+                        "fp32 within looser tolerances)")
     return p
 
 
@@ -241,6 +263,8 @@ def args_to_config(a):
         RTR_gradnorm_tol=a.RTR_gradnorm_tol,
         local_initialization_method=InitMethod(a.local_initialization_method),
         update_rule=UpdateRule(a.update_rule),
+        acceleration=a.acceleration,
+        restart_interval=a.restart_interval,
         max_iteration_number=a.max_iteration_number,
         relative_change_tolerance=a.relative_change_tolerance,
         asynchronous=a.asynchronous,
@@ -311,8 +335,9 @@ def run(argv=None) -> Tuple[Dict, Dict]:
     """Parse, solve, export. Returns (summary, extras): the JSON summary and
     ``{"timing_sec": {init, solve, rounding, export, tcg_iterations or
     ticks}, "initial_cost", ...}`` with, for the RBCD modes,
-    ``"block_updates", "weight_rounds", "weights"`` (the final weights as
-    numpy) and, for the async mode, ``"ticks", "costs"`` and
+    ``"block_updates", "restarts"`` (accelerated steps that restarted),
+    ``"weight_rounds", "weights"`` (the final weights as numpy) and, for
+    the async mode, ``"ticks", "costs"`` and
     ``"ate_vs_ground_truth"``. Raises SystemExit(2) on usage errors."""
     parser = build_parser()
     a = parser.parse_args(argv)
@@ -401,11 +426,17 @@ def _solve_rbcd(a, eng):
         if a.mode == "fused":
             # the engine's resolved config carries the GNC iteration budget
             record = bool(a.log_directory)
-            out = eng.make_fused_run(eng.config.max_iteration_number,
-                                     record=record, return_stats=True)(st)
-            st, tcg = out[0], out[-1]
-            info = {"iterations": st.iteration, "final_cost": float(st.cost),
-                    "tcg_iterations": tcg}
+            cap = eng.config.max_iteration_number
+            if eng.config.acceleration:  # a loop of per-step solves, no K2
+                runner = eng.make_fused_run(cap, record=record)
+                out = runner(st)
+                out = (out,) if not record else out
+                stats = runner.last_stats
+            else:
+                out = eng.make_fused_run(cap, record=record, return_stats=True)(st)
+                stats = {"tcg_iterations": out[-1], "restarts": 0}
+            st = out[0]
+            info = {"iterations": st.iteration, "final_cost": float(st.cost), **stats}
             if eng.config.robust_cost_type != RobustCostType.L2:
                 info.update(eng.gnc_info(st.weights))
             if record:
@@ -425,13 +456,38 @@ def _solve_rbcd(a, eng):
         if "gnc_stats" in info:
             summary["gnc_stats"] = info["gnc_stats"]
         weights = st.weights.cpu().numpy()
-        extras = {"block_updates": info["iterations"],
+        _maybe_certify(summary, a, st.X, eng._edges(st.weights))
+        extras = {"block_updates": info["iterations"], "restarts": info["restarts"],
                   "weight_rounds": st.weight_update_count, "weights": weights}
         return _Solved(summary, extras, T, weights,
                        ("tcg_iterations", info["tcg_iterations"]),
                        rows, iter_times, events)
 
     return solve
+
+
+def _maybe_certify(summary, a, X, edges) -> None:
+    """``--certify``: the dual certificate of the final iterate under the
+    final weights (under GNC, the accepted edges' L2 problem), with the JAX
+    CLI's tolerances (looser in fp32), into ``summary["certificate"]``. Its
+    time counts in the timing line's solve phase."""
+    if not a.certify:
+        return
+    from dpgo_ros_tpu_torch.ops import certificate
+
+    fp64 = X.dtype == torch.float64
+    cert = certificate.certify(
+        X, edges,
+        eig_tol=1e-5 if fp64 else 1e-3,
+        crit_tol=1e-4 if fp64 else 3e-2,
+        lanczos_tol=1e-6 if fp64 else 1e-4,
+    )
+    summary["certificate"] = {
+        "certified_global": bool(cert.is_global),
+        "min_eig": cert.min_eig,
+        "crit_residual": cert.crit_residual,
+        "scale": cert.scale,
+    }
 
 
 def _solve_async(a, eng):

@@ -33,6 +33,19 @@ def proj_tangent(X: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     return join(VY - Y @ sym(Y.transpose(-1, -2) @ VY), Vp)
 
 
+def retract_polar(X: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """Polar retraction: A = Y + V_Y ↦ A (AᵀA)^{-1/2} through a batched
+    d×d eigendecomposition (eigenvalues floored at 1e-12); the translation
+    moves Euclidean."""
+    Y, p = split(X)
+    VY, Vp = split(V)
+    A = Y + VY
+    w, Q = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    w = torch.clamp(w, min=1e-12)
+    Minvsqrt = torch.einsum("nab,nb,ncb->nac", Q, torch.rsqrt(w), Q)
+    return join(A @ Minvsqrt, p + Vp)
+
+
 def retract_polar_ns(
     X: torch.Tensor, V: torch.Tensor, iters: int = 20
 ) -> torch.Tensor:
@@ -87,3 +100,10 @@ def inner(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
 
 def tangent_norm(V: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(V * V))
+
+
+def check_on_manifold(X: torch.Tensor) -> torch.Tensor:
+    """Max deviation of Y_iᵀ Y_i from the identity (diagnostic)."""
+    Y, _ = split(X)
+    I = torch.eye(Y.shape[-1], dtype=X.dtype, device=X.device)
+    return torch.max(torch.abs(Y.transpose(-1, -2) @ Y - I))

@@ -18,8 +18,9 @@ with one CUDA GPU:
    all-ones mask (the JAX script's mask; its window is the whole world,
    every robot's block and no separators) and K4 on robot 0's window (the
    solve the RoundRobin main path launches). The time per solve is the
-   slope over two counts of chained solves (X carried through, CUDA
-   events), as the median and spread of several estimates; the tCG count
+   slope over two counts of chained solves (X carried through; the card's
+   busy time in a profiler trace of the chain), as the median and spread
+   of several estimates; the tCG count
    of every forced solve is read back and must be 3·K. The sweep splits
    the time per solve into a per-tCG slope and an intercept (the fixed
    cost plus 3 × retraction and trial gradient). One reference-budget
@@ -47,11 +48,13 @@ import json
 import math
 import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from dpgo_ros_tpu_torch.io import datasets
 from dpgo_ros_tpu_torch.io.synthetic import generate_world
@@ -71,8 +74,9 @@ from dpgo_ros_tpu_torch.utils.work import (
 
 KS = (1, 10, 50)  # forced tCG budgets per TR iteration
 # chained solves per timing (two counts; the slope between them is the time
-# per solve) and slope estimates per budget; CUDA events have no dispatch
-# floor to beat, so these are far below the JAX script's (8, 136) and 6
+# per solve) and slope estimates per budget; device busy time has no
+# dispatch floor to beat, so these are far below the JAX script's (8, 136)
+# and 6
 REPS, N_EST = (2, 6), 5
 REF_PARAMS = RTRParams(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
 # name: (robots, kernels swept, reference-budget solves before the sweep)
@@ -172,14 +176,36 @@ def solvers(prob: LiftedProblem, Pinv: torch.Tensor, kernels):
     return out
 
 
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of the [ts, ts + dur) ``intervals``, in µs."""
+    total, end = 0.0, -float("inf")
+    for ts, dur in sorted(intervals):
+        if ts + dur > end:
+            total += ts + dur - max(ts, end)
+            end = ts + dur
+    return total
+
+
 def _device_ms(fn) -> float:
-    """Device milliseconds of ``fn()``: CUDA events around it."""
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    fn()
-    b.record()
+    """Device milliseconds of ``fn()``: the card's busy time (the union of
+    its kernel, memcpy and memset intervals) in a torch.profiler trace of
+    the call. CUDA events around the call would also count the card's idle
+    gaps while the host works — K1's wrapper reads its mask check back on
+    every call — and the host's time moves from call to call."""
     torch.cuda.synchronize()
-    return a.elapsed_time(b)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return busy_us([(e["ts"], e["dur"]) for e in events
+                    if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]) / 1e3
 
 
 def solve_time(solve, X0, params: RTRParams, reps=REPS, n_est=N_EST):

@@ -6,6 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 profile_main_path.py [--mode engine|fused|async] [--top 12]
     python3 profile_main_path.py --update_rule Parallel
     python3 profile_main_path.py --world sphere50k
+    python3 profile_main_path.py --acceleration [--mode fused | --update_rule Parallel]
 
 Runs the CLI main path (``--demo dpgo_demo --synthetic sphere
 --synthetic_n 2500 --device cuda --mode MODE``; with ``--update_rule
@@ -13,7 +14,9 @@ Parallel`` the engine's Parallel route, one K1 launch per colour update;
 for ``async`` the ``--demo asapp_demo`` path on the same world; with
 ``--world sphere50k``
 the large-world engine route, ``--synthetic sphere --synthetic_n 50000
---num_robots 16`` with Odometry init, RoundRobin and at most 10 sweeps)
+--num_robots 16`` with Odometry init, RoundRobin and at most 10 sweeps;
+with ``--acceleration`` the dpgo_demo path with ``--acceleration true``,
+one K4 (or K1) launch per update and per restart in either mode)
 once to build the kernels and load the CUDA libraries, then once more
 under ``torch.profiler``.
 From the profiled run's trace it prints:
@@ -28,6 +31,7 @@ From the profiled run's trace it prints:
   its launches and its mean per launch;
 * the idle share, 1 − busy / wall, where wall is the host time of the
   profiled ``cli.run`` call;
+* the device kernels launched in the profiled run (init included);
 * the ``--top`` operators by device time.
 
 The last stdout line is one JSON object holding these numbers. The
@@ -50,8 +54,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from dpgo_ros_tpu_torch import cli
 from dpgo_ros_tpu_torch.ops import fused_asapp, fused_rtr, hbm_rtr
+from dpgo_ros_tpu_torch.scripts.roofline import DEVICE_CATS, busy_us
 
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 KERNELS = {"k1": "rtr_block_kernel", "k2": "rtr_run_kernel", "k3": "asapp_tick_kernel",
            "k4": "rtr_window_kernel"}
 WORLDS = {
@@ -74,25 +78,18 @@ def _zero_launches():
     hbm_rtr.LAUNCHES = 0
 
 
-def busy_us(events) -> float:
-    """Length of the union of [ts, ts + dur) over the events, in µs."""
-    total, end = 0.0, -float("inf")
-    for ts, dur in sorted((e["ts"], e["dur"]) for e in events):
-        if ts + dur <= end:
-            continue
-        total += ts + dur - max(ts, end)
-        end = ts + dur
-    return total
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", choices=["engine", "fused", "async"], default="engine")
     ap.add_argument("--world", choices=list(WORLDS), default="sphere2500")
     ap.add_argument("--update_rule", choices=["RoundRobin", "Parallel"], default=None,
                     help="engine mode only; default: the demo's (RoundRobin)")
+    ap.add_argument("--acceleration", action="store_true",
+                    help="the dpgo_demo path with --acceleration true (not async)")
     ap.add_argument("--top", type=int, default=12)
     a = ap.parse_args(argv)
+    if a.acceleration and (a.mode == "async" or a.world != "sphere2500"):
+        ap.error("--acceleration goes with the sphere2500 engine and fused routes only")
     if a.world == "sphere50k" and a.mode != "engine":
         ap.error("--world sphere50k profiles the engine route only")
     if a.update_rule and (a.mode != "engine" or a.world != "sphere2500"):
@@ -113,6 +110,8 @@ def main(argv=None) -> int:
     argv = argv + ["--device", "cuda", "--mode", a.mode]
     if a.update_rule:
         argv += ["--update_rule", a.update_rule]
+    if a.acceleration:
+        argv += ["--acceleration", "true"]
     summary, extras = cli.run(argv)  # build, library loads, allocator warm-up
     print("warm-up run: " + json.dumps(summary), flush=True)
     print("warm-up timing_sec " + json.dumps(extras["timing_sec"]), flush=True)
@@ -137,10 +136,12 @@ def main(argv=None) -> int:
            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     if not dev:
         raise SystemExit("profile_main_path: the trace holds no device events")
-    busy_ms = busy_us(dev) / 1e3
+    busy_ms = busy_us([(e["ts"], e["dur"]) for e in dev]) / 1e3
+    kernels = sum(e.get("cat") == "kernel" for e in dev)
     out = {"card": card, "mode": a.mode, "world": a.world,
-           "update_rule": a.update_rule or "demo's", "wall_ms": wall_ms,
-           "timing_sec": extras["timing_sec"], "device_busy_ms": busy_ms}
+           "update_rule": a.update_rule or "demo's", "acceleration": a.acceleration,
+           "wall_ms": wall_ms, "timing_sec": extras["timing_sec"], "device_busy_ms": busy_ms,
+           "kernel_launches": kernels}
     for key, name in KERNELS.items():
         ev = [e for e in dev if name in e.get("name", "")]
         ms = sum(e["dur"] for e in ev) / 1e3
@@ -149,8 +150,11 @@ def main(argv=None) -> int:
                     f"{key}_ms_per_launch": ms / max(len(ev), 1),
                     f"{key}_share_of_busy": ms / busy_ms})
     want = dict.fromkeys(KERNELS, 0)
-    if a.mode == "engine":  # one K4 (RoundRobin) or K1 (Parallel) launch per update
-        want["k1" if a.update_rule == "Parallel" else "k4"] = extras["block_updates"]
+    if a.mode == "engine" or a.acceleration:
+        # one K4 (RoundRobin) or K1 (Parallel) launch per update, and per
+        # restart of an accelerated one
+        want["k1" if a.update_rule == "Parallel" else "k4"] = (
+            extras["block_updates"] + extras["restarts"])
     elif a.mode == "fused":
         want["k2"] = 1
     else:
@@ -164,12 +168,13 @@ def main(argv=None) -> int:
     out.update({
         "idle_share": 1.0 - busy_ms / wall_ms,
         "iterations": summary.get("iterations", summary.get("ticks")),
+        "restarts": extras.get("restarts", 0),
         "final_cost": summary["final_cost"],
     })
     shares = ", ".join(f"{k.upper()} {out[k + '_ms']:.3f} ms "
                        f"({100 * out[k + '_share_of_busy']:.1f} %)" for k in KERNELS)
     print(f"device busy {busy_ms:.3f} ms, {shares}, wall {wall_ms:.1f} ms, "
-          f"idle share {out['idle_share']:.3f}")
+          f"idle share {out['idle_share']:.3f}; {kernels} kernel launches")
     print(json.dumps(out))
     return 0
 

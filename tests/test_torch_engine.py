@@ -132,26 +132,23 @@ def test_every_block_update_goes_through_rtr_solve_fused(
 
 @pytest.mark.parametrize("what", ["acceleration", "gnc", "uniform"])
 def test_unported_features_raise(problems, what):
-    """Acceleration is not ported (the engine refuses it at construction);
-    the Uniform rule now is, so its engine builds and runs where it raised
-    before; GNC is, but the runners do not solve blocks with the
-    asynchronous mode's RGD solver — an async engine is built (its
-    ``initialize`` serves the ASAPP engine, as in JAX) and its runners
-    refuse."""
+    """Acceleration and the Uniform rule are now ported, so their engines
+    build and run where they raised before (their parity with JAX is
+    tests/test_torch_acceleration.py's and test_torch_repairs.py's); GNC
+    is, but the runners do not solve blocks with the asynchronous mode's
+    RGD solver — an async engine is built (its ``initialize`` serves the
+    ASAPP engine, as in JAX) and its runners refuse."""
     _, tp = problems
     kw = {
         "acceleration": dict(acceleration=True),
         "gnc": dict(robust_cost_type=RobustCostType.GNC_TLS, asynchronous=True),
         "uniform": dict(rule=UpdateRule.UNIFORM),
     }[what]
-    if what == "uniform":
-        eng = RBCDEngine(tp, port_config(_cfg(**kw)))
-        _, info = eng.run(eng.initialize(ylift=np.eye(5, 3)), max_iters=2)
-        assert info["iterations"] == 2
-        return
     if what != "gnc":
-        with pytest.raises(NotImplementedError):
-            RBCDEngine(tp, port_config(_cfg(**kw)))
+        eng = RBCDEngine(tp, port_config(_cfg(**kw)))
+        st, info = eng.run(eng.initialize(ylift=np.eye(5, 3)), max_iters=2)
+        assert info["iterations"] == 2
+        assert info["history"]["cost"][-1] < float(eng.initialize(ylift=np.eye(5, 3)).cost)
         return
     eng = RBCDEngine(tp, port_config(_cfg(**kw)))
     with pytest.raises(NotImplementedError):

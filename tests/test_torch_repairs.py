@@ -10,7 +10,8 @@ differ.
    ``torch.Generator`` seeded with ``config.seed``; a longer draw extends a
    shorter one, and the engine and the fused runner take the same one.
 2. Every flag both CLIs define has the same default (the port's
-   ``--update_rule`` defaults to Uniform, as JAX's does).
+   ``--update_rule`` defaults to Uniform, as JAX's does), the
+   acceleration and certificate flags included.
 3. The GNC demo's ``--output`` HTML view, loop-closure overlay included,
    is byte-equal between the two CLIs on one small synthetic GNC world
    (fp64 on both sides; the SVG rounds coordinates to 0.1 px).
@@ -121,7 +122,8 @@ def test_shared_flags_have_the_same_defaults():
     shared = dests(jp) & dests(tp)
     assert {"update_rule", "relaxation_rank", "dimension", "partition_balance",
             "synthetic_rot_noise", "synthetic_trans_noise",
-            "multirobot_initialization", "visualize_loop_closures"} <= shared
+            "multirobot_initialization", "visualize_loop_closures",
+            "acceleration", "restart_interval", "certify"} <= shared
     differ = {d: (jp.get_default(d), tp.get_default(d)) for d in sorted(shared)
               if jp.get_default(d) != tp.get_default(d)}
     assert differ == {}
