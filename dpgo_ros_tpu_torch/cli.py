@@ -30,7 +30,14 @@ block-solve launch (K4, or K1 for Parallel) against the extrapolated
 state, one more where the step restarts; in ``--mode fused`` too, which
 then leaves K2 for a loop of such steps, as the JAX CLI's does.
 ``--certify`` runs the dual certificate on the final iterate (the
-``certificate`` key of the summary).
+``certificate`` key of the summary). ``--mode fleet`` runs the distributed
+protocol simulation (``parallel/controller.py``): one agent per robot
+exchanging the reference's messages, each synchronous RTR agent solve one
+K4 launch on the agent's local window (the asynchronous agents' RGD steps
+plain PyTorch on the card); the agents initialize themselves.
+``--frontend HOST:PORT`` pulls the pose graphs from a front-end process
+(``parallel/frontend.py``; the fleet's agents each pull their own) and
+sends the solved trajectories back to it.
 
 Examples::
 
@@ -45,6 +52,8 @@ Examples::
   python -m dpgo_ros_tpu_torch.cli --demo dpgo_demo --synthetic sphere \\
       --synthetic_n 500 --acceleration true --certify --device cpu \\
       --dtype float64
+  python -m dpgo_ros_tpu_torch.cli --demo dpgo_demo --mode fleet \\
+      --synthetic sphere --synthetic_n 500 --device cpu
 
 Prints one JSON summary line on stdout (``mode``, ``iterations``,
 ``final_cost``, ``wall_time_sec``; ``gnc_stats`` for robust costs; for
@@ -53,8 +62,10 @@ synthetic worlds ``ate_vs_ground_truth`` and, with planted outliers,
 rounding and export, with the solve's tCG iterations, on stderr. The async
 mode prints the JAX CLI's async keys (``mode``, ``ticks``,
 ``steps_per_tick``, ``converged``, ``final_cost``, ``wall_time_sec``) and
-keeps the ATE for the caller of :func:`run`. Exits 2 on usage errors,
-including ``--device cuda`` without a CUDA device.
+keeps the ATE for the caller of :func:`run`; so does the fleet mode, whose
+summary has the JAX CLI's fleet keys (``mode``, ``ticks``, ``iterations``,
+``messages_sent``, ``gnc_stats``, ``wall_time_sec``). Exits 2 on usage
+errors, including ``--device cuda`` without a CUDA device.
 """
 
 from __future__ import annotations
@@ -87,6 +98,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="generate a synthetic world with exact ground truth instead "
              "of loading a dataset (takes precedence over --dataset)",
     )
+    p.add_argument(
+        "--frontend", metavar="HOST:PORT",
+        help="pull pose graphs from an out-of-process front-end service "
+             "(parallel/frontend.py) and push solved trajectories back to it",
+    )
     p.add_argument("--synthetic_n", type=int, default=1000,
                    help="number of poses (sphere) / lattice size n^(1/3) "
                         "rounded (grid3d)")
@@ -97,11 +113,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rotation noise (rad) of the synthetic measurements")
     p.add_argument("--synthetic_trans_noise", type=float, default=0.05,
                    help="translation noise of the synthetic measurements")
-    p.add_argument("--mode", choices=["engine", "fused", "async"], default="engine",
+    p.add_argument("--mode", choices=["engine", "fused", "fleet", "async"],
+                   default="engine",
                    help="engine: one block-solve launch per update; fused: "
-                        "one multi-step launch per GNC stretch; async: one "
-                        "ASAPP tick launch per tick (also selected by "
-                        "--asynchronous in engine mode)")
+                        "one multi-step launch per GNC stretch; fleet: the "
+                        "distributed protocol simulation, one agent per "
+                        "robot; async: one ASAPP tick launch per tick (also "
+                        "selected by --asynchronous in engine mode)")
     p.add_argument("--output", help="output prefix for trajectory export")
     p.add_argument("--log_directory",
                    help="write the reference's per-robot telemetry CSVs here")
@@ -168,6 +186,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--robust_init_min_inliers", type=int, default=5)
     p.add_argument("--max_iteration_number", type=int, default=1000)
     p.add_argument("--relative_change_tolerance", type=float, default=0.1)
+    # the fleet's protocol knobs (reference PGOAgentROS.h:33-119)
+    p.add_argument("--publish_iterate", type=_bool, default=False)
+    p.add_argument("--complete_reset", type=_bool, default=False)
+    p.add_argument("--enable_recovery", type=_bool, default=False)
+    p.add_argument("--synchronize_measurements", type=_bool, default=True)
+    p.add_argument("--max_distributed_init_steps", type=int, default=30)
+    p.add_argument("--inter_update_sleep_time", type=float, default=0.0)
+    p.add_argument("--weight_convergence_threshold", type=float, default=-1.0)
+    p.add_argument("--timeout_threshold", type=float, default=15.0,
+                   help="fleet: ticks without a status from the scheduled "
+                        "robot before the leader times it out")
     p.add_argument("--visualize_loop_closures", type=_bool, default=False,
                    help="draw the loop closures, coloured by final weight, in "
                         "the --output HTML view")
@@ -218,6 +247,7 @@ def apply_demo(a, parser) -> None:
             local_initialization_method="Odometry",
             relative_change_tolerance=0.2,
             RTR_gradnorm_tol=0.5,
+            synchronize_measurements=False,
             # reference dpgo_gnc_demo.launch:44 draws GNC-coloured loop markers
             visualize_loop_closures=True,
         )
@@ -274,6 +304,15 @@ def args_to_config(a):
         max_delayed_iterations=a.max_delayed_iterations,
         asapp_tolerance=a.asapp_tolerance,
         asapp_stepsize_decay_ticks=a.asapp_stepsize_decay_ticks,
+        publish_iterate=a.publish_iterate,
+        complete_reset=a.complete_reset,
+        enable_recovery=a.enable_recovery,
+        synchronize_measurements=a.synchronize_measurements,
+        max_distributed_init_steps=a.max_distributed_init_steps,
+        inter_update_sleep_time=a.inter_update_sleep_time,
+        weight_convergence_threshold=a.weight_convergence_threshold,
+        timeout_threshold=a.timeout_threshold,
+        log_directory=a.log_directory,
         dtype=a.dtype,
         seed=a.seed,
     )
@@ -323,7 +362,8 @@ class _Solved:
 
     summary: Dict  # the mode's summary keys; the tail adds the wall time
     extras: Dict
-    T: np.ndarray  # (n, d, d+1) rounded poses
+    T: Optional[np.ndarray]  # (n, d, d+1) rounded poses (fleet: None if
+    # no agent finished)
     weights: np.ndarray  # (E,) final edge weights, for the export
     work: Tuple[str, int]  # the solve's work unit for the timing line
     rows: Optional[np.ndarray] = None  # per-iteration rel changes (telemetry)
@@ -336,15 +376,28 @@ def run(argv=None) -> Tuple[Dict, Dict]:
     ``{"timing_sec": {init, solve, rounding, export, tcg_iterations or
     ticks}, "initial_cost", ...}`` with, for the RBCD modes,
     ``"block_updates", "restarts"`` (accelerated steps that restarted),
-    ``"weight_rounds", "weights"`` (the final weights as numpy) and, for
-    the async mode, ``"ticks", "costs"`` and
-    ``"ate_vs_ground_truth"``. Raises SystemExit(2) on usage errors."""
+    ``"weight_rounds", "weights"`` (the final weights as numpy), for
+    the async mode ``"ticks", "costs"`` and ``"ate_vs_ground_truth"``, and
+    for the fleet ``"ticks", "terminated", "active_robots",
+    "bytes_received", "weights"`` (the fleet's global weights) and the
+    ATE and outlier counts (``initial_cost`` None: the agents initialize
+    themselves). Raises SystemExit(2) on usage errors."""
     parser = build_parser()
     a = parser.parse_args(argv)
     apply_demo(a, parser)
     if a.device == "cuda" and not torch.cuda.is_available():
         parser.exit(2, "error: --device cuda but no CUDA device is available\n")
-    data, gt, planted = load_data(a)
+    frontend = None
+    if a.frontend:
+        # out-of-process SLAM front-end (reference request_pose_graph
+        # service, ``src/PGODatasetPublisherNode.cpp:46-51``)
+        from dpgo_ros_tpu_torch.parallel.frontend import RemoteDatasetServer
+
+        host, _, port = a.frontend.rpartition(":")
+        frontend = RemoteDatasetServer(host or "127.0.0.1", int(port))
+        data, gt, planted = frontend.fetch_data(), None, None
+    else:
+        data, gt, planted = load_data(a)
     if data is None:
         parser.exit(2, "error: provide --demo, --synthetic, --dataset or --g2o\n")
 
@@ -359,19 +412,24 @@ def run(argv=None) -> Tuple[Dict, Dict]:
     is_async = a.mode == "async" or (a.asynchronous and a.mode == "engine")
 
     t0 = _clock(device)
-    prob = LiftedProblem.from_data(
-        data, r=cfg.relaxation_rank, dtype=dtype, device=device
-    )
-    eng = RBCDEngine(prob, cfg)  # the init pipeline of every mode
-    st = eng.initialize()
-    initial_cost = float(st.cost)
-    solve = _solve_async(a, eng) if is_async else _solve_rbcd(a, eng)
+    if a.mode == "fleet":  # the agents initialize themselves
+        prob, st, initial_cost = None, None, None
+        solve = _solve_fleet(data, cfg, device, frontend)
+    else:
+        prob = LiftedProblem.from_data(
+            data, r=cfg.relaxation_rank, dtype=dtype, device=device
+        )
+        eng = RBCDEngine(prob, cfg)  # the init pipeline of the other modes
+        st = eng.initialize()
+        initial_cost = float(st.cost)
+        solve = _solve_async(a, eng) if is_async else _solve_rbcd(a, eng)
     t1 = _clock(device)
     out = solve(st)
     t2 = _clock(device)
-    # the async summary has JAX's keys only: its ATE goes to the extras
-    scored = out.extras if is_async else out.summary
-    if gt is not None:
+    # the async and fleet summaries have JAX's keys only: their ATE goes to
+    # the extras
+    scored = out.extras if is_async or a.mode == "fleet" else out.summary
+    if gt is not None and out.T is not None and len(out.T) == len(gt):
         scored["ate_vs_ground_truth"] = float(rounding.ate_translation(
             torch.as_tensor(out.T, dtype=torch.float64, device=device),
             torch.as_tensor(gt, dtype=torch.float64, device=device),
@@ -387,7 +445,7 @@ def run(argv=None) -> Tuple[Dict, Dict]:
         }
     t3 = _clock(device)
     out.summary["wall_time_sec"] = round(t3 - t0, 3)
-    if a.output:
+    if a.output and out.T is not None:
         export.export_solution(
             a.output, out.T, data.num_poses, data.measurements,
             out.weights[: len(data.measurements)],
@@ -407,6 +465,8 @@ def run(argv=None) -> Tuple[Dict, Dict]:
             iter_times=iter_times, events=out.events,
         )
         print(f"per-agent telemetry CSVs in {a.log_directory}", file=sys.stderr)
+    if frontend is not None:
+        _publish_to_frontend(frontend, out.T, data.num_poses)
     t4 = time.time()
     timing = {"init": t1 - t0, "solve": t2 - t1, "rounding": t3 - t2,
               "export": t4 - t3, out.work[0]: out.work[1]}
@@ -464,6 +524,57 @@ def _solve_rbcd(a, eng):
                        rows, iter_times, events)
 
     return solve
+
+
+def _solve_fleet(data, cfg, device, dataset):
+    """The fleet: one agent per robot on ``device`` (the protocol on the
+    host, every synchronous RTR solve one K4 launch on the card), ticked to
+    termination; the global trajectory of the agents' final ones and the
+    fleet's GNC weights on the global measurements (the loop overlay's).
+    On the card K4 is built here, in the init phase, so that no agent's
+    first solve holds a compile. ``dataset`` is a front-end client or
+    None."""
+    from dpgo_ros_tpu_torch.parallel.controller import DistributedController
+    from dpgo_ros_tpu_torch.utils.config import SolverMethod
+
+    ctl = DistributedController(data, cfg, dataset=dataset, device=device)
+    if device.type == "cuda" and ctl.config.solver == SolverMethod.RTR:
+        from dpgo_ros_tpu_torch.ops import fused_rtr
+
+        fused_rtr._library(fused_rtr.WINDOW_SOURCE)
+
+    def solve(_) -> _Solved:
+        res = ctl.run()
+        m = data.measurements
+        gw = ctl.global_weights(res, m)
+        weights = gw if gw is not None else np.ones(len(m))
+        summary = {"mode": "fleet", "ticks": res["ticks"],
+                   "iterations": res["iterations"],
+                   "messages_sent": res["messages_sent"]}
+        gs = ctl.gnc_statistics(res)
+        if gs is not None:
+            summary["gnc_stats"] = gs
+        extras = {"ticks": res["ticks"], "terminated": res["terminated"],
+                  "active_robots": res["active_robots"],
+                  "bytes_received": res["bytes_received"], "weights": weights}
+        return _Solved(summary, extras, ctl.global_trajectory(res), weights,
+                       ("ticks", res["ticks"]))
+
+    return solve
+
+
+def _publish_to_frontend(frontend, T, num_poses) -> None:
+    """The return path: each robot's solved trajectory back to the
+    front-end (reference publishOptimizedTrajectory,
+    ``src/PGOAgentROS.cpp:622-660``)."""
+    if T is not None:
+        off = 0
+        for k, nk in enumerate(np.asarray(num_poses)):
+            frontend.publish_trajectory(k, T[off:off + int(nk)])
+            off += int(nk)
+        print(f"published {len(num_poses)} trajectories to --frontend",
+              file=sys.stderr)
+    frontend.close()
 
 
 def _maybe_certify(summary, a, X, edges) -> None:

@@ -1,7 +1,9 @@
 """Riemannian trust-region block solve (RTR with Steihaug tCG), plain torch.
 
-Port of ``dpgo_ros_tpu/models/local_solvers.py`` (RTR, and the RGD knobs
-that the asynchronous mode's step uses). Every tangent
+Port of ``dpgo_ros_tpu/models/local_solvers.py``: RTR, and preconditioned
+RGD (the fleet's asynchronous agents and ``solver = RGD`` run
+:func:`rgd_solve`, plain PyTorch on any device, as JAX's agents run XLA's;
+the ASAPP engine's tick is the K3 kernel). Every tangent
 vector is multiplied by a per-pose ``mask`` (n, 1, 1): mask∘Hess∘mask is
 the block Hessian, so a masked solve on the global state is the local
 (block) trust-region solve of RBCD.
@@ -63,8 +65,26 @@ def eps_for(dtype: torch.dtype) -> float:
     return 1e-300 if dtype == torch.float64 else 1e-30
 
 
+def _masked_rgrad(X, e: EdgeSet, mask):
+    return mask * quadratic.rgrad(X, e)
+
+
 def _masked_precond(Pinv, X, V, mask):
     return mask * stiefel.proj_tangent(X, quadratic.precond_apply(Pinv, V))
+
+
+def rgd_step(
+    X: torch.Tensor,
+    e: EdgeSet,
+    mask: torch.Tensor,
+    Pinv: Optional[torch.Tensor],
+    params: RGDParams,
+) -> torch.Tensor:
+    """One preconditioned Riemannian gradient step on the masked block."""
+    g = _masked_rgrad(X, e, mask)
+    if params.use_preconditioner and Pinv is not None:
+        g = _masked_precond(Pinv, X, g, mask)
+    return stiefel.retract_polar_ns(X, -params.stepsize * g)
 
 
 def _tcg(X, e, mask, G, Pinv, radius, params: RTRParams):
@@ -163,4 +183,26 @@ def rtr_solve(
     return X, OptResult(
         f_init=f0, f_opt=f, gradnorm_init=gn0, gradnorm_opt=gn,
         iterations=k, tcg_iterations=ktot,
+    )
+
+
+def rgd_solve(
+    X: torch.Tensor,
+    e: EdgeSet,
+    mask: torch.Tensor,
+    Pinv: Optional[torch.Tensor],
+    params: RGDParams,
+    num_steps: int = 1,
+) -> Tuple[torch.Tensor, OptResult]:
+    """``num_steps`` preconditioned RGD steps (the ASAPP local loop,
+    reference ``asynchronous_rate`` semantics); no tCG."""
+    f0 = quadratic.cost(X, e)
+    gn0 = stiefel.tangent_norm(_masked_rgrad(X, e, mask))
+    Xn = X
+    for _ in range(num_steps):
+        Xn = rgd_step(Xn, e, mask, Pinv, params)
+    return Xn, OptResult(
+        f_init=f0, f_opt=quadratic.cost(Xn, e), gradnorm_init=gn0,
+        gradnorm_opt=stiefel.tangent_norm(_masked_rgrad(Xn, e, mask)),
+        iterations=num_steps, tcg_iterations=0,
     )

@@ -50,8 +50,12 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from dpgo_ros_tpu_torch.models.local_solvers import RTRParams, rtr_solve
-from dpgo_ros_tpu_torch.ops import quadratic, stiefel
+from dpgo_ros_tpu_torch.models.local_solvers import (
+    RGDParams,
+    RTRParams,
+    rgd_step,
+    rtr_solve,
+)
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet
 
 S_F0, S_F, S_GN0, S_GN, S_ITERS, S_TCG = range(6)
@@ -556,22 +560,13 @@ def _run_stops(maxrel: float, it2: int, run) -> bool:
     return (ready and not pending) or (fire and pending)
 
 
-def rgd_step(X, mask, Pinv, edges, stepsize: float) -> torch.Tensor:
-    """One preconditioned projected-gradient step on the masked block and
-    its retraction: X ← Retr(X, −s · m·proj(X, (m·proj(X, ∇f)) P⁻¹))."""
-    m3 = mask.reshape(-1, 1, 1)
-    g = m3 * stiefel.proj_tangent(X, quadratic.egrad(X, edges))
-    z = m3 * stiefel.proj_tangent(X, quadratic.precond_apply(Pinv, g))
-    return stiefel.retract_polar_ns(X, -stepsize * z)
-
-
 def rtr_run_fused_ref(
     X, mask_bank, sched, Pinv, edges, params, *, adj, rel0, cost0, offsets,
     it0, last_wu, gnc_pending, it_cap, tol, gnc, inner, inner_tol, record,
     rgd_stepsize,
 ):
     """Plain PyTorch version of K2: a Python loop over steps on the ported
-    ``rtr_solve`` (or :func:`rgd_step`), with K2's step semantics; the exit
+    ``rtr_solve`` (or ``local_solvers.rgd_step``), with K2's step semantics; the exit
     tests are read on the host. Runs on any device."""
     run = dict(it0=it0, last_wu=last_wu, gnc_pending=gnc_pending, tol=tol,
                gnc=gnc, inner=inner, inner_tol=inner_tol)
@@ -589,7 +584,9 @@ def rtr_run_fused_ref(
     while not stop and it < it_cap:
         m = mask_bank[sched_h[it]]
         if rgd_stepsize > 0:
-            Xf, k = rgd_step(X, m, Pinv, edges, rgd_stepsize), 1
+            Xf = rgd_step(X, edges, m.reshape(-1, 1, 1), Pinv,
+                          RGDParams(stepsize=rgd_stepsize))
+            k = 1
         else:
             Xf, res = rtr_solve(X, edges, m.reshape(-1, 1, 1), Pinv, params)
             cost, k = res.f_opt, res.tcg_iterations

@@ -1,8 +1,10 @@
 """The windowed block solve (K4) as a hand-written CUDA kernel on a
 gathered window, its plain version and the window tables. The engine runs
 every RoundRobin and Uniform block solve through it (``parallel/rbcd.py``);
-the other solver kernels run on the same kind of window: K2 one per bank
-row (:func:`prepare_row_windows`), K1 the window of its mask's block (a
+the fleet's agents run every synchronous RTR solve through it on their
+local problem's window (:func:`prepare_local_window`); the other solver
+kernels run on the same kind of window: K2 one per bank row
+(:func:`prepare_row_windows`), K1 the window of its mask's block (a
 colour class's row, or :func:`prepare_mask_window`; its windowed plain
 version is :func:`rtr_solve_window_ref`), K3 every robot's
 (:func:`prepare_windows`).
@@ -173,9 +175,31 @@ def prepare_row_windows(problem, rows) -> Windows:
     in it, in global order, and their far endpoints. K2's tables, one per
     bank row; :func:`prepare_windows` is the one-robot case."""
     he = problem.host_edges
-    src, dst = np.asarray(he.src, np.int64), np.asarray(he.dst, np.int64)
-    n = problem.n
-    bounds = np.concatenate([problem.offsets, [n]]).astype(np.int64)
+    bounds = np.concatenate([problem.offsets, [problem.n]])
+    return _row_windows(he.src, he.dst, bounds, rows, problem.device)
+
+
+def prepare_local_window(src, dst, n_block: int, n_total: int, device) -> Windows:
+    """The one window of a fleet agent's local problem
+    (``parallel/agent_node.py``): poses [0, n_block) are the agent's block,
+    [n_block, n_total) its neighbours' separator slots, and ``src``/``dst``
+    the local edges' endpoints in the agent's order. One row (robot 0 of
+    bounds [0, n_block, n_total]): the block, then the slots the edges
+    touch, sorted. The edges keep their order, so K4's gather-sums add in
+    the order of ``rtr_solve`` on the whole local problem, and its f is the
+    agent's local cost. Rebuild it with the local problem: ``check`` sees
+    only a change of size."""
+    bounds = np.array([0, n_block, n_total], np.int64)
+    return _row_windows(src, dst, bounds, [(0,)], device)
+
+
+def _row_windows(src, dst, bounds, rows, device) -> Windows:
+    """:func:`prepare_row_windows` on a graph given by its edges' endpoints
+    ``src``/``dst`` and its robots' block ``bounds`` ((R+1,), the last the
+    pose count), its tables placed on ``device``."""
+    src, dst = np.asarray(src, np.int64), np.asarray(dst, np.int64)
+    bounds = np.asarray(bounds, np.int64)
+    n = int(bounds[-1])
     rows = tuple(tuple(int(k) for k in row) for row in rows)
     loc = np.full(n, -1, np.int64)
     inblk = np.zeros(n, bool)
@@ -210,8 +234,7 @@ def prepare_row_windows(problem, rows) -> Windows:
         np.pad(p, ((0, 0), (0, D - p.shape[1])), constant_values=2 * e.size)
         for p, e in zip(pulls, edges)
     ])
-    dev = problem.device
-    i32 = lambda a: torch.as_tensor(np.asarray(a).astype(np.int32), device=dev)
+    i32 = lambda a: torch.as_tensor(np.asarray(a).astype(np.int32), device=device)
     csr = lambda parts: np.concatenate([[0], np.cumsum([len(p) for p in parts])])
     pose_off, edge_off, row_off = csr(poses), csr(edges), csr(rows)
     meta = np.stack([pose_off, edge_off, np.append(sizes, 0), row_off], axis=1)

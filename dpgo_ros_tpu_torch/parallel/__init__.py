@@ -1,1 +1,2 @@
-"""The multi-robot RBCD engine and the asynchronous ASAPP engine."""
+"""The multi-robot RBCD engine, the asynchronous ASAPP engine, and the fleet
+protocol simulation (agents, controller, transports, front-end service)."""

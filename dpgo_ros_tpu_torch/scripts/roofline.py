@@ -44,6 +44,7 @@ writes the same object to a file (never to the repository's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -60,7 +61,8 @@ from dpgo_ros_tpu_torch.io import datasets
 from dpgo_ros_tpu_torch.io.synthetic import generate_world
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import chordal, fused_rtr, hbm_rtr, quadratic, rounding, stiefel
+from dpgo_ros_tpu_torch.ops import (chordal, fused_asapp, fused_rtr, hbm_rtr, peak_chains,
+                                    quadratic, rounding, stiefel)
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
 from dpgo_ros_tpu_torch.scripts import measure_peaks
 from dpgo_ros_tpu_torch.utils.config import AgentConfig, RobustCostType, UpdateRule
@@ -189,23 +191,74 @@ def busy_us(intervals) -> float:
     return total
 
 
-def _device_ms(fn) -> float:
-    """Device milliseconds of ``fn()``: the card's busy time (the union of
-    its kernel, memcpy and memset intervals) in a torch.profiler trace of
-    the call. CUDA events around the call would also count the card's idle
-    gaps while the host works — K1's wrapper reads its mask check back on
-    every call — and the host's time moves from call to call."""
+def launches() -> int:
+    """Every kernel wrapper's launches so far (K1–K6 counters)."""
+    return (fused_rtr.LAUNCHES + fused_rtr.RUN_LAUNCHES + fused_asapp.TICK_LAUNCHES
+            + hbm_rtr.LAUNCHES + peak_chains.LAUNCHES + peak_chains.CML_LAUNCHES)
+
+
+def session_busy_ms(events, launched: int = 0) -> float:
+    """The card's busy milliseconds in the events of a torch.profiler trace:
+    the union of its kernel, memcpy and memset intervals. Raises on a trace
+    that cannot be read so: one holding fewer kernel intervals than the
+    ``launched`` wrapper launches of the traced call (an empty or cut
+    trace), or a device interval that none of the session's CUDA runtime
+    or driver calls launched (by correlation id: another session's record;
+    a trace without correlation ids is taken whole)."""
+    calls = {e["args"]["correlation"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    kernels = sum(e["cat"] == "kernel" for e in dev)
+    if kernels < launched:
+        raise RuntimeError(f"the trace holds {kernels} kernel intervals for {launched} "
+                           "kernel launches")
+    foreign = [e for e in dev if calls and e.get("args", {}).get("correlation") not in calls]
+    if foreign:
+        raise RuntimeError(f"{len(foreign)} of {len(dev)} device intervals in the trace "
+                           "were not launched in the traced session")
+    return busy_us([(e["ts"], e["dur"]) for e in dev]) / 1e3
+
+
+# host sleep (s) at each end of a traced call. The card's timestamps in a
+# trace at times jump against the host's, up to 5.7 ms before the launch
+# that made them, and the profiler drops a device interval that falls
+# outside the session's host window: 13 of 2,468 unpadded traces of short
+# K4 solves lost kernels, none of 2,468 padded by 20 ms
+# (``scripts/trace_pad.py``; PERF.md, PR 9)
+TRACE_PAD_S = 0.02
+
+
+@contextlib.contextmanager
+def padded_profile(activities=(ProfilerActivity.CPU, ProfilerActivity.CUDA),
+                   pad: float = TRACE_PAD_S):
+    """torch.profiler around the ``with`` body, the card synchronized
+    before and after it and the session held open ``pad`` seconds on each
+    side, so that every device interval of the body lies inside it."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    with profile(activities=list(activities)) as prof:
+        time.sleep(pad)
+        yield prof
         torch.cuda.synchronize()
+        time.sleep(pad)
+
+
+def _device_ms(fn) -> float:
+    """Device milliseconds of ``fn()``: the card's busy time in a padded
+    torch.profiler trace of the call (:func:`session_busy_ms`, which holds
+    the trace to the launches the call made). CUDA events around the call
+    would also count the card's idle gaps while the host works — K1's
+    wrapper reads its mask check back on every call — and the host's time
+    moves from call to call."""
+    before = launches()
+    with padded_profile() as prof:
+        fn()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
-    return busy_us([(e["ts"], e["dur"]) for e in events
-                    if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]) / 1e3
+    return session_busy_ms(events, launches() - before)
 
 
 def solve_time(solve, X0, params: RTRParams, reps=REPS, n_est=N_EST):

@@ -1,9 +1,11 @@
 """The card-only measurement scripts of the cluster kernels (K2, K4).
 
 ``dpgo_ros_tpu_torch.scripts.cluster_barrier`` times the cluster solve's
-barriers and reductions alone (``csrc/cluster_barrier.cu``) and
-``slice_sweep.py`` the kernels under several slice weights. Here (no card)
-both must exit nonzero with no result; their probe kernel is built by the
+barriers and reductions alone (``csrc/cluster_barrier.cu``),
+``slice_sweep.py`` the kernels under several slice weights and
+``dpgo_ros_tpu_torch.scripts.trace_pad`` counts the profiler traces of short
+K4 solves that lose kernels, with and without the timer's pad. Here (no
+card) each must exit nonzero with no result; their probe kernel is built by the
 same nvcc route as the kernels of the paths, from the shared cluster header.
 """
 
@@ -22,7 +24,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize("cmd", [["-m", "dpgo_ros_tpu_torch.scripts.cluster_barrier"],
-                                 ["slice_sweep.py"]])
+                                 ["slice_sweep.py"],
+                                 ["-m", "dpgo_ros_tpu_torch.scripts.trace_pad"]])
 def test_probe_exits_nonzero_without_a_card(cmd):
     if torch.cuda.is_available():
         pytest.skip("a card is present")

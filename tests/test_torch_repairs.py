@@ -11,7 +11,8 @@ differ.
    shorter one, and the engine and the fused runner take the same one.
 2. Every flag both CLIs define has the same default (the port's
    ``--update_rule`` defaults to Uniform, as JAX's does), the
-   acceleration and certificate flags included.
+   acceleration, certificate, fleet (``--mode``, ``--frontend``) and
+   protocol flags included.
 3. The GNC demo's ``--output`` HTML view, loop-closure overlay included,
    is byte-equal between the two CLIs on one small synthetic GNC world
    (fp64 on both sides; the SVG rounds coordinates to 0.1 px).
@@ -123,7 +124,9 @@ def test_shared_flags_have_the_same_defaults():
     assert {"update_rule", "relaxation_rank", "dimension", "partition_balance",
             "synthetic_rot_noise", "synthetic_trans_noise",
             "multirobot_initialization", "visualize_loop_closures",
-            "acceleration", "restart_interval", "certify"} <= shared
+            "acceleration", "restart_interval", "certify", "mode", "frontend",
+            "timeout_threshold", "enable_recovery", "synchronize_measurements",
+            "max_distributed_init_steps", "weight_convergence_threshold"} <= shared
     differ = {d: (jp.get_default(d), tp.get_default(d)) for d in sorted(shared)
               if jp.get_default(d) != tp.get_default(d)}
     assert differ == {}

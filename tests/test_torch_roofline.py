@@ -14,6 +14,7 @@ counts of ``utils/work.py``.
 5. No run without a card; ``--out`` never names the TPU's ROOFLINE.json.
 6. The work counts, moved out of chip_smoke.py, against a hand count on a
    two-pose world; chip_smoke.py keeps no copy of them.
+7. The device timer's busy time of a trace, and the traces it refuses.
 The kernels run only on the card (``python3 chip_smoke.py``).
 """
 
@@ -325,3 +326,28 @@ def test_chip_smoke_keeps_no_copy_of_the_counts():
     imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
                 and n.module == "dpgo_ros_tpu_torch.utils.work" for a in n.names}
     assert imported >= {"bound", "block_work", "rtr_flops", "solve_bytes"}
+
+
+def test_session_busy_ms_fails_loudly_on_a_trace_it_cannot_read():
+    """The busy time of a trace is the union of its device intervals; a
+    trace with an interval no runtime or driver call of the session
+    launched (here another session's, spanning the whole trace), or with
+    fewer kernel intervals than the call's launches, raises; a trace
+    without correlation ids is taken whole."""
+    call = lambda c: {"ph": "X", "cat": "cuda_runtime", "ts": 0, "dur": 1,
+                      "args": {"correlation": c}}
+    dev = lambda c, ts, dur, cat="kernel": {"ph": "X", "cat": cat, "ts": ts, "dur": dur,
+                                           "args": {"correlation": c}}
+    events = [call(1), call(2), {"ph": "X", "cat": "cuda_driver", "ts": 0, "dur": 1,
+                                 "args": {"correlation": 3}},
+              dev(1, 10, 5), dev(2, 12, 6), dev(3, 30, 2, "gpu_memcpy"),
+              {"ph": "X", "cat": "cpu_op", "ts": 0, "dur": 50}]
+    assert rl.session_busy_ms(events, 2) == pytest.approx((8 + 2) / 1e3)
+    with pytest.raises(RuntimeError, match="2 kernel intervals for 3"):
+        rl.session_busy_ms(events, 3)
+    with pytest.raises(RuntimeError, match="1 of 4 device intervals"):
+        rl.session_busy_ms(events + [dev(99, 0, 1e6)])
+    with pytest.raises(RuntimeError, match="0 kernel intervals for 1"):
+        rl.session_busy_ms([call(1)], 1)
+    bare = [{k: v for k, v in e.items() if k != "args"} for e in events + [dev(99, 0, 1e6)]]
+    assert rl.session_busy_ms(bare) == pytest.approx(1e6 / 1e3)
