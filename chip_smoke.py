@@ -139,7 +139,28 @@ Phases (any failure exits nonzero; nothing is caught):
      delay 1 tick, seed 3; 2 robots) and a robot killed mid-solve (3
      robots, recovery on): the survivors terminate, K4 once per iteration;
  23. (last) each fleet once more under torch.profiler: the card's busy
-     time, K4's device time and share of it, the idle share.
+     time, K4's device time and share of it, the idle share;
+ 24. (after 9) the spmd mesh program: K1 and K2 against their plain
+     versions on slot windows (the dpgo_demo world on 3 slots, a slot with
+     1,000 padded rows and the 1,500-pose one, full and separator-only
+     exchange): the same TR and tCG counts, X within tolerance, every pose
+     outside the block untouched, a repeat bit-identical;
+ 25. the spmd main path through the CLI (``--mode spmd``) at M = 1 and at
+     5 local slots (``multihost.initialize(..., local_slot_count=5)``),
+     and accelerated at 5, the counters zeroed just before each: K1
+     launches == the active slot-steps (+ restarts), nothing else; the JAX
+     CLI's launches (within 20) and final cost (rel 1e-4; ``JAX_SPMD``); a
+     finite ATE; the GNC demo at 8 slots: recall ≥ JAX's − 0.02,
+     convergence ratio 1.0;
+ 26. stretches: M = 1, S = 8 RTR through the CLI (K2 launches ==
+     launches) and against 16 per-step launches (JAX's pin), M = 5, S = 16
+     RGD to ≤ 1.02·f* (launches and seconds);
+ 27. two processes × 2 slots on the card (gloo) against one × 4 (the
+     multihost demo, 24 steps): bit-identical X and cost, and a run
+     checkpointed at 12 steps and resumed by fresh processes, too;
+ 28. spmd timing: K1 on a slot window (device ms, ms per wrapper call with
+     its mask-check read, plain, bound), K2's RGD step, and the M = 5 run
+     under torch.profiler (busy, K1 share, idle share).
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
@@ -161,7 +182,9 @@ Parallel main path's, K4's the large world's, K5's and K6's the roofline
 path's; ``accel_launches`` are K1's on the accelerated Parallel path and
 K4's on the accelerated engine and fused paths, ``fleet_launches`` K4's on
 each fleet's main path (with ``fleets``, the fleets' readings, and
-``fleet_timing``, their profiles).
+``fleet_timing``, their profiles); ``spmd_launches`` are K1's on each spmd
+main path and K2's on each stretch path, with the slot-window times
+(``spmd_slot_ms`` and the plain and bound beside it).
 """
 
 from __future__ import annotations
@@ -2027,6 +2050,484 @@ def phase_fleet_timing() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- spmd
+
+# the JAX CLI on the same world (run on a CPU host; --cpu_devices 1 and 5):
+#   python -m dpgo_ros_tpu.cli --demo dpgo_demo --synthetic sphere \
+#       --synthetic_n 2500 --mode spmd --platform cpu --cpu_devices M
+# {slots: (launches = iterations, final cost)}
+JAX_SPMD = {1: (20, 12428.17578125), 5: (20, 12501.2421875)}
+SPMD_ITER_SLACK = 20  # one rel-change check window of launches
+TOL_SPMD_COST = 1e-4
+# the GNC demo in spmd mode at 8 slots (--cpu_devices 8): 1,000 launches,
+# final cost 11242.2734375, 245 of 245 planted outliers rejected (one
+# inlier too), convergence ratio 1.0
+JAX_SPMD_GNC_RECALL = 1.0
+JAX_SPMD_GNC_COST = 11242.2734375
+# the card ended 2.3e-3 below JAX (one more inlier rejected: a discrete
+# decision of the TLS rounds, PERF.md §6); about twice that reading
+TOL_SPMD_GNC_COST = 5e-3
+GNC_SLOT = 3  # the GNC slot whose window phase_spmd_compare checks
+# JAX's own pin of an M = 1 stretch against per-step launches
+# (tests/test_spmd.py::test_spmd_stretch_single_device_matches_per_step)
+TOL_STRETCH_COST, TOL_STRETCH_X = 2e-3, 5e-3
+SPMD_FSTAR = 12428.175793305161  # the dpgo_demo world's certified f*
+STRETCH_RGD_STEPSIZE, STRETCH_MAX_LAUNCHES = 0.2, 400
+MULTI_N, MULTI_STEPS = 2500, 24
+
+
+def _spmd_world(slots: int, group: int = None):
+    """The dpgo_demo world (sphere 2,500, seed 42, 5 robots; ``group``:
+    regrouped into that many robots as the CLI does) as the spmd CLI sets
+    it up: (data, prob, engine, initial state, ShardedProblem, config)."""
+    from dpgo_ros_tpu_torch.parallel import spmd
+
+    data, gt, _ = generate_world("sphere", n=2500, num_robots=5, seed=42)
+    if group is not None:
+        data = spmd.group_robots(data, group)
+    cfg = AgentConfig(num_robots=data.num_robots, update_rule=UpdateRule.ROUND_ROBIN,
+                      local_initialization_method=InitMethod.CHORDAL,
+                      relative_change_tolerance=0.2, RTR_gradnorm_tol=0.5,
+                      dtype="float32")
+    prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
+    eng = RBCDEngine(prob, cfg)
+    st0 = eng.initialize()
+    sp = spmd.ShardedProblem.build(prob, st0.X.cpu().numpy(), eng.robot_colors,
+                                   num_devices=max(slots, data.num_robots))
+    return data, gt, prob, eng, st0, sp, cfg
+
+
+def _active_solves(colors, launches: int) -> int:
+    """Σ over steps of the slots whose colour is the step's: the block
+    solves a run of ``launches`` per-step launches makes."""
+    colors = np.asarray(colors)
+    k = int(colors.max()) + 1
+    return int(sum((colors == it % k).sum() for it in range(launches)))
+
+
+def _spmd_run(argv, slots: int):
+    """cli.run of ``DPGO_DEMO``-style argv in spmd mode on ``slots`` local
+    slots of this process (multihost.initialize), the counters zeroed just
+    before; returns (summary, extras, counts, solve seconds)."""
+    from dpgo_ros_tpu_torch.parallel import multihost
+
+    if slots > 1:
+        multihost.initialize("localhost:1", 1, 0, local_slot_count=slots,
+                             device=DEV.type)
+    try:
+        summary, extras, counts = _counted_run(argv + ["--mode", "spmd"])
+    finally:
+        multihost.shutdown()
+    return summary, extras, counts, extras["timing_sec"]["solve"]
+
+
+def phase_spmd_main_path() -> dict:
+    """The spmd main path through the CLI at M = 1 (the JAX CLI's one-device
+    case) and at 5 local slots, and accelerated at 5: K1 launched once per
+    active slot per step (+ restarts), no other kernel; the JAX CLI's
+    launches (within one 20-launch check window) and final cost (rel 1e-4);
+    a finite ATE. Returns {case: readings}."""
+    colors5 = RBCDEngine(LiftedProblem.from_data(
+        generate_world("sphere", n=2500, num_robots=5, seed=42)[0], r=5,
+        dtype=torch.float32, device=DEV), AgentConfig(num_robots=5, dtype="float32")).robot_colors
+    out = {}
+    for name, slots, extra in (("m1", 1, []), ("m5", 5, []),
+                               ("m5-accelerated", 5, ["--acceleration", "true"])):
+        summary, extras, counts, sec = _spmd_run(DPGO_DEMO + extra, slots)
+        launches = summary["launches"]
+        want = (launches if slots == 1 else _active_solves(colors5, launches))
+        print(f"spmd {name}: " + json.dumps(summary) + f"; launches {counts}, block "
+              f"solves {extras['block_updates']} (active slot-steps {want}, restarts "
+              f"{extras['restarts']}), exchange {extras['exchange_bytes']} B per step, "
+              f"solve {sec:.3f} s, ATE {extras['ate_vs_ground_truth']:.6g}", flush=True)
+        assert summary["devices"] == slots and summary["iterations"] == launches
+        assert extras["block_updates"] == want + extras["restarts"], name
+        _only(counts, k1=extras["block_updates"])
+        assert math.isfinite(extras["ate_vs_ground_truth"])
+        assert summary["final_cost"] < extras["initial_cost"]
+        if not extra:
+            jax_launches, jax_cost = JAX_SPMD[slots]
+            assert abs(launches - jax_launches) <= SPMD_ITER_SLACK, (launches, jax_launches)
+            assert abs(summary["final_cost"] - jax_cost) <= TOL_SPMD_COST * jax_cost, (
+                summary["final_cost"], jax_cost)
+        out[name] = dict(launches=launches, k1=counts["k1"], solve_s=sec,
+                         final_cost=summary["final_cost"], restarts=extras["restarts"],
+                         exchange_bytes=extras["exchange_bytes"],
+                         ms_per_step=1e3 * sec / launches)
+    return out
+
+
+def phase_spmd_gnc() -> dict:
+    """The GNC demo in spmd mode at 8 slots: recall ≥ JAX's − 0.02,
+    convergence ratio 1.0, the final cost within rel TOL_SPMD_GNC_COST of
+    the JAX CLI's, K1 once per active slot per step."""
+    t = time.time()
+    summary, extras, counts, sec = _spmd_run(GNC_DEMO, 8)
+    og = extras["outlier_ground_truth"]
+    colors8 = RBCDEngine(LiftedProblem.from_data(
+        generate_world("sphere", n=2500, num_robots=8, seed=42, outlier_ratio=0.1)[0],
+        r=5, dtype=torch.float32, device=DEV), AgentConfig(num_robots=8, dtype="float32")).robot_colors
+    want = _active_solves(colors8, summary["launches"])
+    print(f"spmd gnc (8 slots): " + json.dumps(summary) + f"; {json.dumps(og)}, "
+          f"launches {counts}, active slot-steps {want}, weight rounds "
+          f"{extras['weight_rounds']}, solve {sec:.3f} s, {time.time() - t:.1f} s",
+          flush=True)
+    _only(counts, k1=want)
+    assert extras["block_updates"] == want
+    assert og["planted"] == GNC_PLANTED
+    assert og["rejected_true"] / og["planted"] >= JAX_SPMD_GNC_RECALL - 0.02, og
+    assert summary["gnc_stats"]["convergence_ratio"] == 1.0, summary["gnc_stats"]
+    cost_rel = abs(summary["final_cost"] - JAX_SPMD_GNC_COST) / JAX_SPMD_GNC_COST
+    assert cost_rel <= TOL_SPMD_GNC_COST, (summary["final_cost"], JAX_SPMD_GNC_COST)
+    return dict(launches=summary["launches"], k1=counts["k1"], solve_s=sec,
+                recall=og["rejected_true"] / og["planted"],
+                final_cost=summary["final_cost"])
+
+
+def phase_spmd_stretch() -> dict:
+    """Stretches: M = 1, S = 8 RTR through the CLI (one K2 launch per
+    launch, no K1) and through the spmd API against 16 per-step launches
+    (JAX's pin: cost rel 2e-3, X within 5e-3); M = 5, S = 16 RGD
+    (stepsize 0.2) run until the cost is ≤ 1.02 × f*: the launches and
+    seconds it takes, K2 once per slot per launch."""
+    from dpgo_ros_tpu_torch.parallel import multihost, spmd
+
+    summary, extras, counts, sec = _spmd_run(
+        DPGO_DEMO + ["--spmd_steps_per_launch", "8"], 1)
+    print(f"spmd stretch m1 (CLI): " + json.dumps(summary) + f"; launches {counts}, "
+          f"solve {sec:.3f} s", flush=True)
+    _only(counts, k2=summary["launches"])
+    assert summary["iterations"] == 8 * summary["launches"]
+    out = {"cli_m1": dict(launches=summary["launches"], k2=counts["k2"], solve_s=sec,
+                          final_cost=summary["final_cost"])}
+
+    data, _, prob, eng, st0, sp, cfg = _spmd_world(1, group=1)
+    mesh = multihost.local_mesh(1, DEV)
+    st_a, step_a = spmd.build_spmd_step(sp, cfg, mesh)
+    st_b, step_b = spmd.build_spmd_step(
+        sp, dataclasses.replace(cfg, spmd_steps_per_launch=8), mesh)
+    _zero_counts()
+    for it in range(16):
+        st_a = step_a(it, 0, st_a)
+    k1 = fused_rtr.LAUNCHES
+    for lt in range(2):
+        st_b = step_b(lt, 0, st_b)
+    counts = _counts()
+    e = prob.edges
+    Xa = torch.as_tensor(spmd.gather_trajectory(sp, st_a, prob.num_poses), device=DEV)
+    Xb = torch.as_tensor(spmd.gather_trajectory(sp, st_b, prob.num_poses), device=DEV)
+    fa, fb = float(quadratic.cost(Xa, e)), float(quadratic.cost(Xb, e))
+    xerr = float(((Xb - Xa).abs() - TOL_STRETCH_X * Xa.abs()).max())
+    print(f"spmd stretch m1: 16 per-step launches (K1 {k1}) cost {fa:.7g}, 2 S=8 "
+          f"launches (K2 {counts['k2']}) cost {fb:.7g}, rel {abs(fb - fa) / fa:.2e}; "
+          f"X max |Δ| − 5e-3·|X| {xerr:.2e}", flush=True)
+    assert k1 == 16 and counts["k2"] == 2 and counts["k1"] == k1
+    assert st_a.iteration == st_b.iteration == 16
+    assert abs(fb - fa) <= TOL_STRETCH_COST * fa
+    assert xerr <= TOL_STRETCH_X
+
+    data, _, prob, eng, st0, sp, cfg = _spmd_world(5)
+    st, step = spmd.build_spmd_step(sp, dataclasses.replace(
+        cfg, spmd_steps_per_launch=16, spmd_stretch_rgd_stepsize=STRETCH_RGD_STEPSIZE),
+        multihost.local_mesh(5, DEV))
+    assert step.S == 16 and step.stretch_rgd == STRETCH_RGD_STEPSIZE
+    e = prob.edges
+    cost = lambda s: float(quadratic.cost(torch.as_tensor(
+        spmd.gather_trajectory(sp, s, prob.num_poses), device=DEV), e))
+    f0 = cost(st)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t, lt, f, solve = time.time(), 0, f0, 0.0
+    while lt < STRETCH_MAX_LAUNCHES:
+        t1 = time.time()
+        st = step(lt, 0, st)
+        torch.cuda.synchronize()
+        solve += time.time() - t1
+        lt += 1
+        f = cost(st)
+        if f <= 1.02 * SPMD_FSTAR:
+            break
+    wall = time.time() - t
+    counts = _counts()
+    print(f"spmd stretch m5 RGD S=16: cost {f0:.7g} -> {f:.7g} (≤ 1.02 f* = "
+          f"{1.02 * SPMD_FSTAR:.7g}) in {lt} launches = {16 * lt} steps, {solve:.3f} s "
+          f"in the steps ({wall:.3f} s with the cost checks); launches {counts}",
+          flush=True)
+    assert f <= 1.02 * SPMD_FSTAR, (f, lt)
+    _only(counts, k2=5 * lt)
+    out["m5_rgd"] = dict(launches=lt, steps=16 * lt, k2=counts["k2"], solve_s=solve,
+                         wall_s=wall, final_cost=f)
+    return out
+
+
+def _slot_cases():
+    """(name, Xg, slot, step, state) for the kernel checks on slot windows:
+    the dpgo_demo world regrouped to 3 slots (500, 500 and 1,500 poses, so
+    slots 0 and 1 carry 1,000 padded rows each) from a noisy state, with the
+    full exchange's gathered state and the separator-only one (template
+    poses outside the slot's block and separators); then a slot of the GNC
+    demo on 8 slots after its first weight round (:func:`_gnc_slot_case`)."""
+    from dpgo_ros_tpu_torch.parallel import multihost, spmd
+
+    data, gt, prob, eng, st0, sp0, cfg = _spmd_world(3, group=3)
+    X = noisy_state(prob, gt, seed=7).cpu().numpy()
+    sp = spmd.ShardedProblem.build(prob, X, eng.robot_colors, num_devices=3)
+    for sep_only in (False, True):
+        st, step = spmd.build_spmd_step(
+            sp, dataclasses.replace(cfg, spmd_separator_only=sep_only),
+            multihost.local_mesh(3, DEV))
+        views = step._exchange(st)
+        for m in (0, 2):
+            yield f"slot{m}/{'separators' if sep_only else 'full'}", views[m][0], m, step, st
+    yield _gnc_slot_case()
+
+
+def _gnc_slot_case():
+    """The GNC demo's mesh program on 8 slots (blocks of 312–313 poses in
+    slots of 316, separator-only exchange), stepped as the spmd CLI
+    steps it through its first weight round: slot GNC_SLOT's edges then
+    carry fractional and zero TLS weights (asserted)."""
+    from dpgo_ros_tpu_torch.parallel import multihost, spmd
+
+    parser = cli.build_parser()
+    a = parser.parse_args(GNC_DEMO + ["--mode", "spmd"])
+    cli.apply_demo(a, parser)
+    data, _, _ = cli.load_data(a)
+    cfg = dataclasses.replace(cli.args_to_config(a), num_robots=data.num_robots,
+                              dtype="float32")
+    prob = LiftedProblem.from_data(data, r=cfg.relaxation_rank, dtype=torch.float32,
+                                   device=DEV)
+    eng = RBCDEngine(prob, dataclasses.replace(cfg, use_fused_kernel=None))
+    st0 = eng.initialize()
+    sp = spmd.ShardedProblem.build(prob, st0.X.cpu().numpy(), eng.robot_colors,
+                                   num_devices=8)
+    st, step = spmd.build_spmd_step(sp, cfg, multihost.local_mesh(8, DEV))
+    inner = cfg.robust_opt_inner_iters_per_robot * cfg.num_robots
+    for it in range(inner + 1):  # the CLI's cadence: the first round at `inner`
+        st = step(it, int(it == inner), st)
+    m = GNC_SLOT
+    w = st.weights[m].cpu().numpy()
+    live = (sp.mask[m] > 0) & (sp.is_loop[m] > 0)
+    frac, zero = int((live & (w > 0) & (w < 1)).sum()), int((live & (w == 0)).sum())
+    print(f"spmd gnc slot {m} after weight round {st.wuc} (step {inner}): "
+          f"{int(sp.pose_valid[m].sum())} poses of {sp.n_max}, {int(live.sum())} loop "
+          f"closures: {frac} fractional, {zero} zero weights", flush=True)
+    assert st.wuc == 1 and step.sep_only and frac > 0 and zero > 0, (st.wuc, frac, zero)
+    return f"gnc slot{m}/round1", step._exchange(st)[m][0], m, step, st
+
+
+def phase_spmd_compare() -> dict:
+    """K1 and K2 against their plain versions on slot windows (a padded
+    slot, the full and the separator-only exchange): the same TR and tCG
+    counts (K2: steps, and tCG where no step revisits the block), X within
+    TOL_X (K2: TOL_RUN_X), every pose outside the block bit-identical to
+    the input, a repeated launch bit-identical. Returns {case: readings}."""
+    out = {}
+    before = (fused_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES)
+    for name, Xg, m, step, st in _slot_cases():
+        w = step._windows[m]
+        own = step._own[m]
+        e = dataclasses.replace(step._edges[m], weight=st.weights[m])
+        Pinv = step._pinv(m, st.weights)
+        out_mask = own[:, 0, 0] == 0
+        # K1
+        Xk, sk = fused_rtr.rtr_solve_fused(Xg, own, Pinv, e, DEMO_PARAMS, windows=w, row=0)
+        Xk2, sk2 = fused_rtr.rtr_solve_fused(Xg, own, Pinv, e, DEMO_PARAMS, windows=w, row=0)
+        Xp, sp_ = fused_rtr.rtr_solve_fused_ref(Xg, own, Pinv, e, DEMO_PARAMS, w.offsets)
+        Xp = torch.where(own > 0, Xp, Xg)
+        sk, sp_ = sk.double().cpu().numpy(), sp_.double().cpu().numpy()
+        xrel = float((Xk - Xp).abs().max() / Xp.abs().max())
+        same = torch.equal(Xk, Xk2) and torch.equal(sk2.double().cpu(), torch.as_tensor(sk))
+        untouched = torch.equal(Xk[out_mask], Xg[out_mask])
+        # K2 on the slot's one-row window: one RTR step (a first solve: the
+        # tCG counts must agree), 8 RTR steps (each after the first
+        # revisits the block near its optimum, where fp32 sum order decides
+        # tCG exits: held by X and steps), 8 RGD steps
+        runs = {}
+        for rule, rgd, steps in (("rtr1", 0.0, 1), ("rtr", 0.0, 8),
+                                 ("rgd", STRETCH_RGD_STEPSIZE, 8)):
+            R = w.num_robots
+            kw = dict(adj=Xg.new_zeros((R, R)), rel0=Xg.new_ones((R,)), it0=0,
+                      last_wu=0, gnc_pending=False, it_cap=steps, tol=0.0,
+                      gnc=False, inner=steps, inner_tol=None, rgd_stepsize=rgd,
+                      offsets=w.offsets)
+            bank = own.reshape(1, -1).contiguous()
+            sched = torch.zeros(steps, dtype=torch.int32, device=DEV)
+            rk = fused_rtr.rtr_run_fused(Xg, bank, sched, Pinv, e, DEMO_PARAMS,
+                                         cost0=0.0, windows=w, **kw)
+            rk2 = fused_rtr.rtr_run_fused(Xg, bank, sched, Pinv, e, DEMO_PARAMS,
+                                          cost0=0.0, windows=w, **kw)
+            rp = fused_rtr.rtr_run_fused_ref(
+                Xg, bank, sched, Pinv, e, DEMO_PARAMS, cost0=torch.zeros(1, device=DEV),
+                record=False, **kw)
+            ks, ps = rk[2].tolist(), rp[2].tolist()
+            runs[rule] = dict(
+                steps=(int(ks[fused_rtr.RUN_STEPS]), int(ps[fused_rtr.RUN_STEPS])),
+                tcg=(int(ks[fused_rtr.RUN_TCG]), int(ps[fused_rtr.RUN_TCG])),
+                x_rel=float((rk[0] - rp[0]).abs().max() / rp[0].abs().max()),
+                repeat=torch.equal(rk[0], rk2[0]) and torch.equal(rk[2], rk2[2]),
+                untouched=torch.equal(rk[0][out_mask], Xg[out_mask]))
+        out[name] = dict(block=int(w.num_poses[0]),
+                         separators=int(w.pose_off[1] - w.num_poses[0]),
+                         edges=int(w.edge_off[1]), cluster=w.cluster,
+                         k1_tr=(int(sk[4]), int(sp_[4])), k1_tcg=(int(sk[5]), int(sp_[5])),
+                         k1_x_rel=xrel, k2=runs)
+        print(f"spmd compare {name}: " + json.dumps(out[name]) + f"; K1 repeat "
+              f"bit-identical {same}, outside the block untouched {untouched}", flush=True)
+        assert int(sk[4]) == int(sp_[4]) and int(sk[5]) == int(sp_[5]), name
+        assert xrel <= TOL_X and same and untouched, name
+        for rule, r in runs.items():
+            n_steps = 1 if rule == "rtr1" else 8
+            assert r["steps"] == (n_steps, n_steps), (name, rule, r)
+            assert rule == "rtr" or r["tcg"][0] == r["tcg"][1], (name, rule, r)
+            assert r["x_rel"] <= TOL_RUN_X and r["repeat"] and r["untouched"], (name, rule)
+    fused_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES = before  # comparison launches
+    return out
+
+
+def _demo_procs(tmp, tag, num_processes, local, steps, *extra):
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    return [subprocess.Popen(
+        [sys.executable, "-m", "dpgo_ros_tpu_torch.scripts.multihost_demo",
+         "--num_processes", str(num_processes), "--process_id", str(pid),
+         "--coordinator", f"localhost:{port}", "--local_devices", str(local),
+         "--synthetic", "sphere", "--synthetic_n", str(MULTI_N), "--steps", str(steps),
+         "--device", DEV.type,
+         "--x_out", os.path.join(tmp, f"{tag}.npy"), *extra],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(num_processes)]
+
+
+def _demo_results(procs):
+    out = []
+    for pid, p in enumerate(procs):
+        so, se = p.communicate(timeout=300)
+        assert p.returncode == 0, f"demo process {pid} failed:\n{se[-3000:]}"
+        line = [l for l in so.splitlines() if l.startswith("MULTIHOST_RESULT")]
+        assert line, so[-2000:]
+        out.append(json.loads(line[0].split(" ", 1)[1]))
+    return out
+
+
+def phase_spmd_multiprocess(tmp: str) -> dict:
+    """Two processes × 2 slots on the one card (gloo, the exchange staged
+    through host buffers) against one process × 4 slots, 24 steps each:
+    the gathered X and the cost bit-identical; a 2 × 2 run stopped at 12
+    steps with its state checkpointed, resumed by a fresh pair of
+    processes to 24, bit-identical too. Returns the step seconds."""
+    ck = os.path.join(tmp, "mh_ck")
+    single = _demo_procs(tmp, "one", 1, 4, MULTI_STEPS)
+    pair = _demo_procs(tmp, "two", 2, 2, MULTI_STEPS)
+    part = _demo_procs(tmp, "part", 2, 2, MULTI_STEPS // 2, "--checkpoint_dir", ck)
+    r1, r2, r3 = _demo_results(single), _demo_results(pair), _demo_results(part)
+    r4 = _demo_results(_demo_procs(tmp, "resumed", 2, 2, MULTI_STEPS, "--resume", ck))
+    X1, X2, X4 = (np.load(os.path.join(tmp, f"{t}.npy")) for t in ("one", "two", "resumed"))
+    print(f"spmd 2 processes x 2 slots vs 1 x 4 ({MULTI_STEPS} steps, sphere "
+          f"{MULTI_N}): cost {r2[0]['final_cost']!r} / {r1[0]['final_cost']!r}, X "
+          f"bit-identical {np.array_equal(X1, X2)}; resumed at {MULTI_STEPS // 2}: cost "
+          f"{r4[0]['final_cost']!r}, bit-identical {np.array_equal(X1, X4)}; step "
+          f"seconds 1x4 {r1[0]['elapsed_s']}, 2x2 {r2[0]['elapsed_s']} / "
+          f"{r2[1]['elapsed_s']}", flush=True)
+    assert r2[0]["num_processes"] == 2 and r2[0]["global_devices"] == 4
+    assert r1[0]["final_cost"] == r2[0]["final_cost"] == r2[1]["final_cost"]
+    assert np.array_equal(X1, X2)
+    assert r4[0]["final_cost"] == r4[1]["final_cost"] == r1[0]["final_cost"]
+    assert np.array_equal(X1, X4)
+    assert r1[0]["final_cost"] < r1[0]["init_cost"]
+    return {"one_by_four_s": r1[0]["elapsed_s"], "two_by_two_s": r2[0]["elapsed_s"],
+            "steps": MULTI_STEPS}
+
+
+def phase_spmd_timing() -> dict:
+    """On the slot windows of the 3-slot case: K1 device ms per launch (a
+    profiler trace) and per wrapper call (CUDA events: the mask check's
+    read-back included), its plain version's ms, the bound; K2 device ms per
+    step (8 RGD steps per launch, the stretch's work) and the plain
+    version's; then one M = 5 spmd CLI run under torch.profiler: busy,
+    K1's share, the idle share."""
+    from types import SimpleNamespace
+
+    from dpgo_ros_tpu_torch.parallel import multihost
+    from dpgo_ros_tpu_torch.utils.work import rgd_flops
+
+    name, Xg, m, step, st = next(iter(_slot_cases()))
+    w, own = step._windows[m], step._own[m]
+    e = dataclasses.replace(step._edges[m], weight=st.weights[m])
+    Pinv = step._pinv(m, st.weights)
+    before = (fused_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES)
+    k1 = lambda: fused_rtr.rtr_solve_fused(Xg, own, Pinv, e, DEMO_PARAMS, windows=w, row=0)
+    plain = lambda: fused_rtr.rtr_solve_fused_ref(Xg, own, Pinv, e, DEMO_PARAMS, w.offsets)
+    k1_dev = _kernel_ms(k1, "rtr_block_kernel")
+    k1_call = _time(k1, 5)
+    k1_plain = _time(plain, 1)
+    stats = k1()[1].tolist()
+    R = w.num_robots
+    kw = dict(adj=Xg.new_zeros((R, R)), rel0=Xg.new_ones((R,)), it0=0, last_wu=0,
+              gnc_pending=False, it_cap=8, tol=0.0, gnc=False, inner=8,
+              inner_tol=None, rgd_stepsize=STRETCH_RGD_STEPSIZE, offsets=w.offsets)
+    bank = own.reshape(1, -1).contiguous()
+    sched = torch.zeros(8, dtype=torch.int32, device=DEV)
+    k2 = lambda: fused_rtr.rtr_run_fused(Xg, bank, sched, Pinv, e, DEMO_PARAMS,
+                                         cost0=0.0, windows=w, **kw)
+    k2_dev = _kernel_ms(k2, "rtr_run_kernel") / 8
+    k2_plain = _time(lambda: fused_rtr.rtr_run_fused_ref(
+        Xg, bank, sched, Pinv, e, DEMO_PARAMS, cost0=torch.zeros(1, device=DEV),
+        record=False, **kw), 1) / 8
+    fused_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES = before  # timing launches
+    # bounds over the block's poses, its live edges and its separators
+    # (utils/work.py; the slot's padding copies carry no term)
+    nk, Ek = int(w.num_poses[0]), int(w.edge_off[1])
+    sep = int(w.pose_off[1]) - nk
+    counts = SimpleNamespace(r=5, d=3, num_robots=R)
+    k1_bnd = bound(solve_bytes(counts, nk, Ek, sep),
+                   rtr_flops(nk, Ek, 5, 3, int(stats[4]), int(stats[5])))
+    # a K2 step: the same operands over the launch's 8 steps, X written once
+    k2_bnd = bound(solve_bytes(counts, nk, Ek, sep, stats=4) / 8, rgd_flops(nk, Ek, 5, 3))
+    print(f"spmd timing ({name}, {nk} block poses, {sep} separators, {Ek} edges): K1 "
+          f"{k1_dev:.4f} ms on the device ({int(stats[5])} tCG), {k1_call:.4f} ms per "
+          f"wrapper call (the mask check's read-back included), plain {k1_plain:.3f} ms, "
+          f"bound {k1_bnd[0] * 1e3:.4f} us by {k1_bnd[1]}; K2 RGD {k2_dev:.4f} ms per step "
+          f"on the device, plain {k2_plain:.3f} ms, bound {k2_bnd[0] * 1e3:.4f} us by "
+          f"{k2_bnd[1]}", flush=True)
+    # one M = 5 CLI run under the profiler: busy, K1 share, idle share
+    multihost.initialize("localhost:1", 1, 0, local_slot_count=5, device=DEV.type)
+    try:
+        launched = roofline.launches()
+        with roofline.padded_profile() as prof:
+            t = time.time()
+            summary, extras = cli.run(DPGO_DEMO + ["--mode", "spmd"])
+            torch.cuda.synchronize()
+            wall = time.time() - t
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "spmd.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        busy = roofline.session_busy_ms(events, roofline.launches() - launched)
+        k1_ev = [ev for ev in events if ev.get("ph") == "X"
+                 and ev.get("cat") in roofline.DEVICE_CATS
+                 and "rtr_block_kernel" in ev.get("name", "")]
+        k1_ms = sum(ev["dur"] for ev in k1_ev) / 1e3
+    finally:
+        multihost.shutdown()
+    fused_rtr.LAUNCHES = before[0]
+    prof_out = dict(profiled_wall_s=wall, busy_ms=busy, k1_ms=k1_ms,
+                    k1_launches=len(k1_ev), k1_share_of_busy=k1_ms / max(busy, 1e-9),
+                    idle_share=1 - busy / (1e3 * wall), launches=summary["launches"])
+    print(f"spmd profile (M = 5): profiled wall {wall:.3f} s, device busy {busy:.3f} ms "
+          f"(idle share {prof_out['idle_share']:.4f}), K1 {k1_ms:.3f} ms in {len(k1_ev)} "
+          f"launches", flush=True)
+    return dict(k1=(k1_dev, k1_plain, k1_bnd), k1_call_ms=k1_call,
+                k2=(k2_dev, k2_plain, k2_bnd), profile=prof_out,
+                shape=dict(block=nk, separators=sep, edges=Ek, cluster=w.cluster))
+
+
 def _phase(name, fn, *args):
     t = time.time()
     out = fn(*args)
@@ -2068,6 +2569,13 @@ def main() -> int:
     _phase("async fixed ticks", phase_async_fixed_ticks)
     _phase("async stop mid-chunk", phase_async_stop)
     _phase("gnc", phase_gnc)
+    spmd_err = _phase("spmd K1/K2 vs plain on slot windows", phase_spmd_compare)
+    spmd_main = _phase("spmd main path", phase_spmd_main_path)
+    spmd_gnc = _phase("spmd gnc", phase_spmd_gnc)
+    spmd_stretch = _phase("spmd stretches", phase_spmd_stretch)
+    with tempfile.TemporaryDirectory() as tmp:
+        spmd_multi = _phase("spmd two processes", phase_spmd_multiprocess, tmp)
+    spmd_timing = _phase("spmd timing", phase_spmd_timing)
     _phase("large sweep", phase_large_sweep)
     k1, k1_robot = _phase("K1 timing", phase_timing)
     *k2, k2_call = _phase("K2 timing", phase_timing_run)
@@ -2090,10 +2598,23 @@ def main() -> int:
                 robot_plain_ms=k1_robot[1], robot_bound_ms=k1_robot[2][0],
                 robot_ms_per_tcg=k1_robot[3], robot_call_ms=k1_robot[4],
                 accel_launches=accel["parallel"][0],
+                spmd_launches=dict({k: v["k1"] for k, v in spmd_main.items()},
+                                   gnc8=spmd_gnc["k1"]),
+                spmd_slot_ms=spmd_timing["k1"][0], spmd_slot_plain_ms=spmd_timing["k1"][1],
+                spmd_slot_bound_ms=spmd_timing["k1"][2][0],
+                spmd_slot_call_ms=spmd_timing["k1_call_ms"],
+                spmd_slot_shape=spmd_timing["shape"], spmd=spmd_main, spmd_gnc=spmd_gnc,
+                spmd_two_processes=spmd_multi, spmd_profile=spmd_timing["profile"],
+                spmd_slot_checks=spmd_err,
                 launch_shapes=k1_shapes, ptxas=ptxas[fused_rtr.SOURCE.stem]),
         _kernel("rtr_run_fused", "dpgo_ros_tpu_torch/csrc/rtr_run.cu",
                 "dpgo_ros_tpu/ops/fused_rtr.py:1458", run_launches, run_err, *k2,
-                call_ms=k2_call, launch_shapes=run_shapes,
+                call_ms=k2_call,
+                spmd_launches={k: v["k2"] for k, v in spmd_stretch.items()},
+                spmd_stretch=spmd_stretch, spmd_slot_ms=spmd_timing["k2"][0],
+                spmd_slot_plain_ms=spmd_timing["k2"][1],
+                spmd_slot_bound_ms=spmd_timing["k2"][2][0],
+                launch_shapes=run_shapes,
                 ptxas=ptxas[fused_rtr.RUN_SOURCE.stem]),
         _kernel("asapp_tick_fused", "dpgo_ros_tpu_torch/csrc/asapp_tick.cu",
                 "dpgo_ros_tpu/ops/fused_asapp.py:200", tick_launches, tick_err, *k3,

@@ -7,7 +7,8 @@ kernels run on the same kind of window: K2 one per bank row
 (:func:`prepare_row_windows`), K1 the window of its mask's block (a
 colour class's row, or :func:`prepare_mask_window`; its windowed plain
 version is :func:`rtr_solve_window_ref`), K3 every robot's
-(:func:`prepare_windows`).
+(:func:`prepare_windows`); K1 and K2 on an spmd mesh slot's window
+(:func:`prepare_slot_window`).
 
 K4 ports ``dpgo_ros_tpu/ops/hbm_rtr.py::rtr_solve_hbm`` (the Pallas kernel
 built by ``_make_hbm_kernel``, with ``prepare_operands`` and
@@ -193,11 +194,29 @@ def prepare_local_window(src, dst, n_block: int, n_total: int, device) -> Window
     return _row_windows(src, dst, bounds, [(0,)], device)
 
 
-def _row_windows(src, dst, bounds, rows, device) -> Windows:
+def prepare_slot_window(src, dst, live, start: int, size: int, n: int,
+                        device) -> Windows:
+    """The one window of an spmd mesh slot (``parallel/spmd.py``): the
+    slot's copies of its edges (``src``/``dst`` in the gathered pose space
+    of n = M·n_max poses, ``live`` 0 on the padding copies, which no window
+    holds) and its real poses [start, start + size) as the block. The
+    bounds cut the pose space into the pieces before the block, the block
+    and after it (empty pieces dropped), so the slot's padded rows and the
+    other slots' poses belong to no block; the row is the block's piece.
+    K1 and K2 (one bank row) solve on it; separators are the other slots'
+    poses the live edges touch."""
+    cuts = sorted({0, int(start), int(start) + int(size), int(n)})
+    return _row_windows(src, dst, cuts, [(cuts.index(int(start)),)], device,
+                        live=live)
+
+
+def _row_windows(src, dst, bounds, rows, device, live=None) -> Windows:
     """:func:`prepare_row_windows` on a graph given by its edges' endpoints
     ``src``/``dst`` and its robots' block ``bounds`` ((R+1,), the last the
-    pose count), its tables placed on ``device``."""
+    pose count), its tables placed on ``device``; edges with ``live`` 0
+    belong to no window."""
     src, dst = np.asarray(src, np.int64), np.asarray(dst, np.int64)
+    keep = np.ones(src.size, bool) if live is None else np.asarray(live) > 0
     bounds = np.asarray(bounds, np.int64)
     n = int(bounds[-1])
     rows = tuple(tuple(int(k) for k in row) for row in rows)
@@ -209,7 +228,7 @@ def _row_windows(src, dst, bounds, rows, device) -> Windows:
             raise ValueError(f"prepare_row_windows: row {row} is not ascending robots")
         blk = np.concatenate([np.arange(bounds[k], bounds[k + 1]) for k in row])
         inblk[blk] = True
-        eids = np.flatnonzero(inblk[src] | inblk[dst])
+        eids = np.flatnonzero((inblk[src] | inblk[dst]) & keep)
         ends = np.concatenate([src[eids], dst[eids]])
         sep = np.unique(ends[~inblk[ends]])
         inblk[blk] = False

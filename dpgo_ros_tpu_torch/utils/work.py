@@ -107,6 +107,14 @@ def rtr_flops(n: int, E: int, r: int, d: int, tr: int, tcg: int) -> float:
             + tr * tr_flops(n, E, r, d) + tcg * tcg_flops(n, E, r, d))
 
 
+def rgd_flops(n: int, E: int, r: int, d: int) -> float:
+    """One preconditioned Riemannian gradient step of a block of ``n``
+    poses over ``E`` edges (K2's RGD variant): the edge pass, the
+    preconditioned projection and the retraction of every pose."""
+    proj, prec, retract, C = _pose_flops(r, d)
+    return _edge_flops(E, r, d) + n * (proj + C + retract + prec + C)
+
+
 def tick_flops(prob, steps: int, precond: bool) -> float:
     """One ASAPP tick: per robot and step, the edge pass over the edges
     that touch its block and the step on its own poses; the movement."""

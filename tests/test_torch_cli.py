@@ -204,3 +204,66 @@ def test_gnc_demo_without_synthetic_loads_tunnels():
     else:
         with pytest.raises(OSError):
             cli.load_data(a)
+
+
+SPMD_FLAGS = ("mode", "use_fused_kernel", "spmd_steps_per_launch",
+              "spmd_stretch_rgd_stepsize", "spmd_separator_only", "spmd_repartition",
+              "checkpoint_dir", "checkpoint_every", "resume")
+
+
+def test_spmd_and_checkpoint_flags_have_jax_defaults():
+    from dpgo_ros_tpu import cli as jax_cli
+
+    jp, tp = jax_cli.build_parser(), cli.build_parser()
+    acts = lambda p: {a.dest: a for a in p._actions}
+    ja, ta = acts(jp), acts(tp)
+    for d in SPMD_FLAGS:
+        assert d in ta, d
+        assert ta[d].default == ja[d].default, d
+        if d not in ("mode", "use_fused_kernel"):  # the port's kernels are CUDA's
+            assert ta[d].help == ja[d].help, d
+    assert "spmd" in ta["mode"].choices
+
+
+def test_spmd_summary_matches_jax_cli(capsys):
+    """``--mode spmd`` at 5 slots (the port's local slots; the JAX CLI's 8
+    CPU devices, 5 robots): JAX's summary keys, the same launches and
+    iterations, final cost within rel 1e-4 (fp32)."""
+    from dpgo_ros_tpu import cli as jax_cli
+    from dpgo_ros_tpu_torch.parallel import multihost
+
+    argv = ["--demo", "dpgo_demo", "--synthetic", "sphere", "--synthetic_n", "500",
+            "--mode", "spmd"]
+    assert jax_cli.main(argv + ["--platform", "cpu"]) == 0
+    jax_summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    try:
+        multihost.initialize("localhost:1", 1, 0, local_slot_count=8, device="cpu")
+        summary, extras = cli.run(argv + ["--device", "cpu"])
+    finally:
+        multihost.shutdown()
+    assert set(summary) == set(jax_summary)
+    assert summary["devices"] == jax_summary["devices"] == 5
+    for k in ("mode", "iterations", "launches"):
+        assert summary[k] == jax_summary[k], k
+    assert summary["final_cost"] == pytest.approx(jax_summary["final_cost"], rel=1e-4)
+    assert math.isfinite(extras["ate_vs_ground_truth"])
+    assert extras["block_updates"] > 0 and extras["exchange_bytes"] > 0
+
+
+def test_spmd_run_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import dpgo_ros_tpu_torch.cli\n"
+        "import dpgo_ros_tpu_torch.parallel.spmd, dpgo_ros_tpu_torch.parallel.multihost\n"
+        "import dpgo_ros_tpu_torch.utils.checkpoint\n"
+        "import dpgo_ros_tpu_torch.scripts.multihost_demo\n"
+        "s, _ = dpgo_ros_tpu_torch.cli.run(sys.argv[1:])\n"
+        "assert 'jax' not in sys.modules, 'run loaded jax'\n"
+        "print('JAX_FREE', sorted(s))\n"
+    )
+    proc = _subprocess(code, "--synthetic", "grid3d", "--synthetic_n", "64",
+                       "--num_robots", "2", "--device", "cpu", "--mode", "spmd",
+                       "--max_iteration_number", "4")
+    assert proc.returncode == 0, proc.stderr
+    assert ("JAX_FREE ['devices', 'final_cost', 'iterations', 'launches', 'mode', "
+            "'wall_time_sec']") in proc.stdout

@@ -189,7 +189,13 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("where", ["dpgo_ros_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("where", [
+    "dpgo_ros_tpu_torch", "chip_smoke.py",
+    "dpgo_ros_tpu_torch/parallel/spmd.py", "dpgo_ros_tpu_torch/parallel/multihost.py",
+    "dpgo_ros_tpu_torch/utils/checkpoint.py",
+    "dpgo_ros_tpu_torch/scripts/multihost_demo.py",
+    "dpgo_ros_tpu_torch/scripts/multicard_check.py",
+])
 def test_port_imports_nothing_of_the_jax_package(where):
     root = REPO / where
     files = sorted(root.rglob("*.py")) if root.is_dir() else [root]

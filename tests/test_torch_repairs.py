@@ -126,7 +126,10 @@ def test_shared_flags_have_the_same_defaults():
             "multirobot_initialization", "visualize_loop_closures",
             "acceleration", "restart_interval", "certify", "mode", "frontend",
             "timeout_threshold", "enable_recovery", "synchronize_measurements",
-            "max_distributed_init_steps", "weight_convergence_threshold"} <= shared
+            "max_distributed_init_steps", "weight_convergence_threshold",
+            "spmd_steps_per_launch", "spmd_stretch_rgd_stepsize",
+            "spmd_separator_only", "spmd_repartition", "use_fused_kernel",
+            "checkpoint_dir", "checkpoint_every", "resume"} <= shared
     differ = {d: (jp.get_default(d), tp.get_default(d)) for d in sorted(shared)
               if jp.get_default(d) != tp.get_default(d)}
     assert differ == {}
