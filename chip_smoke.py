@@ -138,7 +138,7 @@ Phases (any failure exits nonzero; nothing is caught):
  22. fleet faults on 1,000-pose spheres: a lossy transport (drop 0.2,
      delay 1 tick, seed 3; 2 robots) and a robot killed mid-solve (3
      robots, recovery on): the survivors terminate, K4 once per iteration;
- 23. (last) each fleet once more under torch.profiler: the card's busy
+ 23. (after 16) each fleet once more under torch.profiler: the card's busy
      time, K4's device time and share of it, the idle share;
  24. (after 9) the spmd mesh program: K1 and K2 against their plain
      versions on slot windows (the dpgo_demo world on 3 slots, a slot with
@@ -160,7 +160,31 @@ Phases (any failure exits nonzero; nothing is caught):
      checkpointed at 12 steps and resumed by fresh processes, too;
  28. spmd timing: K1 on a slot window (device ms, ms per wrapper call with
      its mask-check read, plain, bound), K2's RGD step, and the M = 5 run
-     under torch.profiler (busy, K1 share, idle share).
+     under torch.profiler (busy, K1 share, idle share);
+ 29. (after 23, with 30–33) K2's RGD variant as the engine launches it (one step on the
+     robot's or colour class's window, the cost carried by the window's
+     f − f0) against its plain version on the dpgo_demo world after 5 RTR
+     updates and on the GNC world after its first weight round (fractional
+     and zero weights asserted), every robot and colour window: X and cost
+     within K2's tolerances, the poses outside the block untouched, a
+     repeat bit-identical;
+ 30. the engine with ``solver = RGD`` (stepsize 0.2) on the dpgo_demo world,
+     30 updates under RoundRobin, Parallel and acceleration, the counters
+     zeroed just before each: K2 launches == updates + restarts, nothing
+     else; the cost history against the plain route (K2's plain version on
+     the card in its wrapper's place);
+ 31. the fused RGD runner: 30 steps in one K2 launch (the engine route's
+     cost), the GNC demo in one K2 launch per stretch (its rounds and cost
+     against the engine RGD route's);
+ 32. the CLI's observability flags: the dpgo_demo engine run with
+     ``--viz_interval_iters 10 --viz_dir --profile_dir --verbose true``
+     (snapshot files and manifest; the trace's K4 launches by kernel name;
+     its device-to-host copies outside the snapshots equal a run without
+     ``--viz_*``: an update that writes no snapshot reads nothing more;
+     the verbose lines), and ``--csv`` on per-robot CSVs of the world
+     written in the phase;
+ 33. K2's one-step RGD launch on robot 0's window timed (device ms, ms per
+     wrapper call, plain, bound).
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
@@ -184,7 +208,11 @@ K4's on the accelerated engine and fused paths, ``fleet_launches`` K4's on
 each fleet's main path (with ``fleets``, the fleets' readings, and
 ``fleet_timing``, their profiles); ``spmd_launches`` are K1's on each spmd
 main path and K2's on each stretch path, with the slot-window times
-(``spmd_slot_ms`` and the plain and bound beside it).
+(``spmd_slot_ms`` and the plain and bound beside it); K2's
+``engine_rgd_launches`` and ``fused_rgd_launches`` are its launches on the
+engine and fused RGD paths, with the one-step RGD launch's times on a
+robot window (``rgd_robot_ms`` and the plain, bound and call times beside
+it); K4's ``observability`` holds phase 32's readings.
 """
 
 from __future__ import annotations
@@ -206,7 +234,7 @@ from torch.profiler import ProfilerActivity
 from dpgo_ros_tpu_torch.io.g2o import _quat_to_rot
 from dpgo_ros_tpu_torch.io.synthetic import add_random_loop_closures, generate_world
 from dpgo_ros_tpu_torch.types import EdgeType, MeasurementBatch, PoseGraphData
-from dpgo_ros_tpu_torch.utils.config import AgentConfig, InitMethod, UpdateRule
+from dpgo_ros_tpu_torch.utils.config import AgentConfig, InitMethod, SolverMethod, UpdateRule
 from dpgo_ros_tpu_torch import cli
 from dpgo_ros_tpu_torch.models import certified
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
@@ -2528,6 +2556,400 @@ def phase_spmd_timing() -> dict:
                 shape=dict(block=nk, separators=sep, edges=Ek, cluster=w.cluster))
 
 
+# ---------------------------------------------------------------- RGD, observability
+
+# the asapp_demo's preconditioned step (launch/asapp_demo.launch), the RGD
+# solver's stepsize on the dpgo_demo and GNC worlds
+RGD_STEPSIZE = 0.2
+ENGINE_RGD_UPDATES = 30  # fixed updates (tolerance 0) of the engine RGD runs
+# --csv: the world read back from per-robot CSVs (its edges in another
+# order, so fp32 sums in another order) against the same world generated
+# (rel 1.5e-6 on the CPU, fp32)
+TOL_CSV_COST = 1e-4
+# the fused and engine RGD routes' GNC runs (their rounds fire on fp32
+# rel-change thresholds; TOL_SPMD_GNC_COST's reason)
+TOL_RGD_GNC_COST = 5e-3
+VIZ_EVERY = 10
+
+
+def _demo_engine(argv, **config):
+    """(engine, initial state) of the CLI's world and config for ``argv``
+    on the card (fp32), the config updated with ``config``."""
+    parser = cli.build_parser()
+    a = parser.parse_args(argv)
+    cli.apply_demo(a, parser)
+    data, _, _ = cli.load_data(a)
+    cfg = dataclasses.replace(cli.args_to_config(a), num_robots=data.num_robots,
+                              **config)
+    prob = LiftedProblem.from_data(data, r=cfg.relaxation_rank, dtype=torch.float32,
+                                   device=DEV)
+    eng = RBCDEngine(prob, cfg)
+    return eng, eng.initialize()
+
+
+def _rgd(eng, rule=None, **config) -> RBCDEngine:
+    """An RGD engine on ``eng``'s problem (its rule unless ``rule``)."""
+    cfg = dataclasses.replace(eng.config, solver=SolverMethod.RGD,
+                              RGD_stepsize=RGD_STEPSIZE, **config)
+    if rule is not None:
+        cfg = dataclasses.replace(cfg, update_rule=UpdateRule(rule))
+    return RBCDEngine(eng.problem, cfg)
+
+
+def _k2_plain(X, bank, sched, Pinv, edges, params, *, windows, cost0, record=False, **kw):
+    """K2's plain version in its wrapper's place: the same operands, on the
+    card (``windows`` is the kernel's alone)."""
+    cost0 = torch.as_tensor(cost0, dtype=X.dtype, device=X.device).reshape(1)
+    return fused_rtr.rtr_run_fused_ref(X, bank, sched, Pinv, edges, params,
+                                       cost0=cost0, record=record, **kw)
+
+
+def _rgd_states():
+    """(name, RTR engine, state) to hold K2's RGD step on: the dpgo_demo
+    world after 5 RTR updates (K4), and the GNC demo's after one sweep of 8
+    updates and its first weight round, whose loop closures then carry
+    fractional and zero TLS weights (asserted)."""
+    eng, st0 = _demo_engine(DPGO_DEMO)
+    st, _ = eng.run(st0, max_iters=5)
+    yield "dpgo_demo", eng, st
+    eng, st0 = _demo_engine(GNC_DEMO)
+    st, _ = eng.run(st0, max_iters=8)
+    st = eng._weight_update_impl(st)
+    w = st.weights.cpu().numpy()
+    live = eng.problem.host_edges.is_loop > 0
+    frac, zero = int((live & (w > 0) & (w < 1)).sum()), int((live & (w == 0)).sum())
+    print(f"rgd: GNC state after weight round {st.weight_update_count}: "
+          f"{int(live.sum())} loop closures, {frac} fractional, {zero} zero weights",
+          flush=True)
+    assert st.weight_update_count == 1 and frac > 0 and zero > 0, (frac, zero)
+    yield "gnc/round1", eng, st
+
+
+def phase_compare_rgd() -> tuple:
+    """K2's RGD variant as the engine launches it (one step, the cost
+    carried by the window's f − f0) against its plain version, on every
+    robot window (RoundRobin) and colour window (Parallel) of the
+    dpgo_demo world and of the GNC world after its first weight round.
+    Gates: X within TOL_RUN_X of max |X|, the cost within rel
+    TOL_RUN_COST, every pose outside the block bit-unchanged, a second
+    launch bit-identical. Returns (max abs X error, {case: launch shape})."""
+    worst, shapes = 0.0, {}
+    before = fused_rtr.RUN_LAUNCHES
+    for name, rtr_eng, st in _rgd_states():
+        for rule in ("RoundRobin", "Parallel"):
+            eng = _rgd(rtr_eng, rule)
+            e = eng._edges(st.weights)
+            Pinv = eng._solver_cache(e)
+            par = rule == "Parallel"
+            for row in range(eng._bank.shape[0]):
+                route = dict(color=row) if par else dict(robot=row)
+                mask = (eng._color_masks if par else eng._masks)[row]
+                go = lambda: eng._local_solve(st.X, e, mask, Pinv, cost=st.cost, **route)
+                Xk, sk = go()
+                Xk2, sk2 = go()
+                with mock.patch.object(fused_rtr, "rtr_run_fused", _k2_plain):
+                    Xp, sp = go()
+                out = mask.reshape(-1) == 0
+                err = float((Xk - Xp).abs().max())
+                xrel = err / float(Xp.abs().max())
+                ck, cp = float(sk[fused_rtr.RUN_COST]), float(sp[fused_rtr.RUN_COST])
+                crel = abs(ck - cp) / abs(cp)
+                same = torch.equal(Xk, Xk2) and torch.equal(sk, sk2)
+                untouched = torch.equal(Xk[out], st.X[out])
+                case = f"{name}/{'color' if par else 'robot'}{row}"
+                w = eng._row_windows
+                shapes[case] = dict(launch_shape(w, eng.problem.d, eng.problem.r),
+                                    block=int(w.num_poses[row]))
+                worst = max(worst, err)
+                print(f"rgd {case}: cost {float(st.cost):.7g} -> {ck:.7g} (plain {cp:.7g}, "
+                      f"rel {crel:.2e}), X rel {xrel:.2e} (max abs {err:.2e}), outside "
+                      f"untouched {untouched}, repeat bit-identical {same}; "
+                      f"{json.dumps(shapes[case])}", flush=True)
+                # the last robot solved sits at its block's optimum: its step
+                # may move the cost by rounding only
+                assert math.isfinite(ck) and ck <= float(st.cost) * (1 + TOL_RUN_COST), case
+                assert xrel <= TOL_RUN_X and crel <= TOL_RUN_COST, case
+                assert untouched and same, case
+    fused_rtr.RUN_LAUNCHES = before  # comparison launches
+    return worst, shapes
+
+
+ENGINE_RGD_CASES = (("roundrobin", "RoundRobin", {}), ("parallel", "Parallel", {}),
+                    ("accelerated", "RoundRobin", dict(acceleration=True)))
+
+
+def phase_engine_rgd() -> dict:
+    """``solver = RGD`` through the engine on the dpgo_demo world for
+    ENGINE_RGD_UPDATES updates (tolerance 0) under RoundRobin, Parallel and
+    acceleration, the counters zeroed just before each run: K2 launches ==
+    updates + restarts and no other kernel. The same runs on the plain
+    route (K2's plain version on the card in its wrapper's place): the
+    same restarts, the cost history within rel TOL_RUN_COST. Then the
+    device-to-host copies per RoundRobin RGD update, from two traced runs
+    (30 and 60 updates): one (the engine's read). Returns {case: {k2 launches, updates,
+    restarts, final cost, solve s}}."""
+    base, st0 = _demo_engine(DPGO_DEMO)
+    out = {}
+    for name, rule, config in ENGINE_RGD_CASES:
+        eng = _rgd(base, rule, relative_change_tolerance=0.0, **config)
+        eng.run(st0, max_iters=2)  # the windows, built on first use
+        _zero_counts()
+        t = time.time()
+        st, info = eng.run(st0, max_iters=ENGINE_RGD_UPDATES)
+        torch.cuda.synchronize()
+        secs = time.time() - t
+        counts = _counts()
+        with mock.patch.object(fused_rtr, "rtr_run_fused", _k2_plain):
+            _, pinfo = eng.run(st0, max_iters=ENGINE_RGD_UPDATES)
+        hk, hp = np.array(info["history"]["cost"]), np.array(pinfo["history"]["cost"])
+        rel = float(np.max(np.abs(hk - hp) / np.abs(hp)))
+        print(f"engine rgd {name}: {info['iterations']} updates, {info['restarts']} "
+              f"restarts (plain {pinfo['restarts']}), launches {counts}, cost "
+              f"{float(st0.cost):.7g} -> {info['final_cost']:.7g} (plain "
+              f"{pinfo['final_cost']:.7g}), max rel history deviation {rel:.2e}, "
+              f"{secs:.3f} s", flush=True)
+        assert info["iterations"] == ENGINE_RGD_UPDATES and info["tcg_iterations"] == 0
+        _only(counts, k2=info["iterations"] + info["restarts"])
+        assert info["restarts"] == pinfo["restarts"] and rel <= TOL_RUN_COST, name
+        assert info["final_cost"] < float(st0.cost)
+        out[name] = dict(k2=counts["k2"], updates=info["iterations"],
+                         restarts=info["restarts"], final_cost=info["final_cost"],
+                         solve_s=secs)
+    # host reads per RGD update: the device-to-host copies of two traced
+    # runs, of N and 2N updates, differ by N updates' reads alone
+    eng = _rgd(base, relative_change_tolerance=0.0)
+    eng.run(st0, max_iters=eng.problem.num_robots)  # windows built, checks read
+    n = ENGINE_RGD_UPDATES
+    copies = [_dtoh(_traced(lambda k=k: eng.run(st0, max_iters=k)))[0] for k in (n, 2 * n)]
+    per_update = (copies[1] - copies[0]) / n
+    print(f"engine rgd: device-to-host copies {copies[0]} in {n} updates, {copies[1]} "
+          f"in {2 * n}: {per_update:.3f} per update", flush=True)
+    assert per_update == 1.0  # the engine's one read (rbcd.RBCDEngine._read)
+    out["roundrobin"]["dtoh_per_update"] = per_update
+    return out
+
+
+def _traced(fn) -> list:
+    """The events of a padded torch.profiler trace of ``fn()``."""
+    with roofline.padded_profile() as prof:
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def phase_fused_rgd(engine_rgd: dict) -> dict:
+    """The fused runner with ``solver = RGD``, the counters zeroed just
+    before each run: the dpgo_demo world's ENGINE_RGD_UPDATES steps in one
+    K2 launch, its final cost within rel TOL_RUN_COST of the engine RGD
+    route's; the GNC demo (RGD) one K2 launch per stretch (weight rounds +
+    1), its rounds, updates and final cost those of the engine RGD route
+    on the same config (K2 per update). Returns {case: {k2, updates,
+    final cost, solve s}}. The GNC runs' rounds fire on rel-change
+    thresholds that the two routes compute in another fp32 sum order, so
+    a round may fire a step apart: their costs are held to
+    TOL_RGD_GNC_COST and their accept sets to MIN_MODE_AGREEMENT."""
+    out = {}
+    base, st0 = _demo_engine(DPGO_DEMO)
+    eng = _rgd(base, relative_change_tolerance=0.0)
+    eng.make_fused_run(2)(st0)  # the windows, built on first use
+    _zero_counts()
+    t = time.time()
+    st, tcg = eng.make_fused_run(ENGINE_RGD_UPDATES, return_stats=True)(st0)
+    torch.cuda.synchronize()
+    secs = time.time() - t
+    counts = _counts()
+    ref = engine_rgd["roundrobin"]["final_cost"]
+    rel = abs(float(st.cost) - ref) / abs(ref)
+    print(f"fused rgd: {st.iteration} steps, launches {counts}, cost {float(st.cost):.7g} "
+          f"(engine route {ref:.7g}, rel {rel:.2e}), {secs:.3f} s", flush=True)
+    _only(counts, k2=1)
+    assert st.iteration == ENGINE_RGD_UPDATES == tcg and rel <= TOL_RUN_COST
+    out["l2"] = dict(k2=counts["k2"], updates=st.iteration, final_cost=float(st.cost),
+                     solve_s=secs)
+    gbase, g0 = _demo_engine(GNC_DEMO)
+    geng = _rgd(gbase)
+    cap = geng.config.max_iteration_number
+    _zero_counts()
+    t = time.time()
+    gst = geng.make_fused_run(cap)(g0)
+    torch.cuda.synchronize()
+    secs = time.time() - t
+    counts = _counts()
+    est, ginfo = geng.run(g0)
+    gref = ginfo["final_cost"]
+    rel = abs(float(gst.cost) - gref) / abs(gref)
+    stats = geng.gnc_info(gst.weights)["gnc_stats"]
+    loops = geng.problem.host_edges.is_loop > 0
+    agree = float(np.mean((gst.weights.cpu().numpy()[loops] > 0.5)
+                          == (est.weights.cpu().numpy()[loops] > 0.5)))
+    print(f"fused rgd gnc: {gst.iteration} steps (engine route {ginfo['iterations']}), "
+          f"weight rounds {gst.weight_update_count} ({est.weight_update_count}), "
+          f"launches {counts}, cost {float(gst.cost):.7g} (engine route {gref:.7g}, rel "
+          f"{rel:.2e}), accept sets agree on {100 * agree:.2f} %, {json.dumps(stats)}, "
+          f"{secs:.3f} s", flush=True)
+    _only(counts, k2=gst.weight_update_count + 1)
+    assert gst.weight_update_count == est.weight_update_count == (
+        geng.config.robust_opt_num_weight_updates)
+    assert rel <= TOL_RGD_GNC_COST and agree >= MIN_MODE_AGREEMENT
+    out["gnc"] = dict(k2=counts["k2"], updates=gst.iteration, final_cost=float(gst.cost),
+                      weight_rounds=gst.weight_update_count, solve_s=secs)
+    return out
+
+
+def phase_timing_rgd() -> tuple:
+    """K2's one-step RGD launch on robot 0's window of the dpgo_demo world
+    (the engine's RGD update): device ms from a profiler trace, ms per
+    wrapper call (CUDA events), the plain version's ms and the bound: the
+    window's operands read once, the block and stats written once; the
+    step's operations and the two cost passes over the window's edges.
+    Returns (device ms, plain ms, bound (ms, by), call ms)."""
+    from types import SimpleNamespace
+
+    from dpgo_ros_tpu_torch.utils.work import cost_flops, rgd_flops
+
+    base, st0 = _demo_engine(DPGO_DEMO)
+    eng = _rgd(base)
+    e = eng._edges(st0.weights)
+    Pinv = eng._solver_cache(e)
+    go = lambda: eng._local_solve(st0.X, e, eng._masks[0], Pinv, robot=0, cost=st0.cost)
+    before = fused_rtr.RUN_LAUNCHES
+    dev = _kernel_ms(go, "rtr_run_kernel", reps=20)
+    call = _time(go, 20)
+    with mock.patch.object(fused_rtr, "rtr_run_fused", _k2_plain):
+        plain = _time(go, 2)
+    fused_rtr.RUN_LAUNCHES = before  # timing launches
+    prob = eng.problem
+    nk, Ek, ns = block_work(prob, prob.robot_of_pose == 0)
+    counts = SimpleNamespace(r=prob.r, d=prob.d, num_robots=prob.num_robots)
+    bnd = bound(solve_bytes(counts, nk, Ek, ns, stats=4),
+                rgd_flops(nk, Ek, prob.r, prob.d) + 2 * cost_flops(Ek, prob.r, prob.d))
+    print(f"rgd timing (robot 0: {nk} block poses, {ns} separators, {Ek} edges, "
+          f"{eng._row_windows.cluster} CTAs): K2 one RGD step {dev:.4f} ms on the device, "
+          f"{call:.4f} ms per wrapper call, plain {plain:.3f} ms, bound "
+          f"{bnd[0] * 1e3:.4f} us by {bnd[1]}", flush=True)
+    return dev, plain, bnd, call
+
+
+def _trace_events(directory: str) -> list:
+    files = [f for f in os.listdir(directory) if f.endswith(".json")]
+    assert len(files) == 1, files
+    with open(os.path.join(directory, files[0])) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _dtoh(events) -> tuple:
+    """(device-to-host copies in a trace, those launched inside a
+    "snapshot" annotation): a copy's runtime call on the host, matched by
+    its correlation id, lies inside the annotation's interval."""
+    spans = [(ev["ts"], ev["ts"] + ev["dur"]) for ev in events
+             if ev.get("cat") == "user_annotation" and ev.get("name") == "snapshot"]
+    host = {ev["args"]["correlation"]: ev["ts"] for ev in events
+            if ev.get("cat") == "cuda_runtime" and "correlation" in ev.get("args", {})}
+    copies = [ev for ev in events
+              if ev.get("cat") == "gpu_memcpy" and "DtoH" in ev.get("name", "")]
+    inside = sum(any(a <= host.get(ev["args"].get("correlation"), -1) <= b
+                     for a, b in spans) for ev in copies)
+    return len(copies), inside
+
+
+def _write_csvs(directory: str, data) -> list:
+    """Per-robot ``measurements.csv`` files of ``data``: each robot's file
+    holds the measurements whose source pose it owns."""
+    from dpgo_ros_tpu_torch.io.g2o import rot_to_quat
+
+    m = data.measurements
+    paths = []
+    for k in range(data.num_robots):
+        rows = ["robot_src,pose_src,robot_dst,pose_dst,qx,qy,qz,qw,tx,ty,tz,"
+                "kappa,tau,is_known_inlier,weight"]
+        for i in np.flatnonzero(m.src_robot == k):
+            vals = [*rot_to_quat(m.R[i]), *m.t[i], m.kappa[i], m.tau[i]]
+            rows.append(f"{m.src_robot[i]},{m.src_frame[i]},{m.dst_robot[i]},"
+                        f"{m.dst_frame[i]}," + ",".join(repr(float(v)) for v in vals)
+                        + f",{int(m.fixed_weight[i])},{float(m.weight[i])!r}")
+        path = os.path.join(directory, f"robot{k}", "measurements.csv")
+        os.makedirs(os.path.dirname(path))
+        with open(path, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        paths.append(path)
+    return paths
+
+
+def phase_observability(tmp: str, engine_summary) -> dict:
+    """The CLI's new flags on the card. The dpgo_demo engine run with
+    ``--viz_interval_iters VIZ_EVERY --viz_dir --profile_dir --verbose
+    true`` and the same run with ``--profile_dir`` alone: the snapshot files
+    and manifest rows at iterations 1, 1 + VIZ_EVERY, ...; the trace holds
+    the run's K4 launches by kernel name; the device-to-host copies outside
+    the snapshots equal the other run's, so an update that writes no
+    snapshot reads nothing more; stderr holds the resolved config and one
+    line per update. Then ``--csv`` on per-robot CSVs of the world written
+    here: K4 per update, the final cost within rel TOL_CSV_COST of the
+    generated world's run. Returns the readings."""
+    import contextlib
+    import io
+
+    argv = DPGO_DEMO + ["--update_rule", "RoundRobin"]
+    viz, prof_a, prof_b = (os.path.join(tmp, d) for d in ("viz", "prof_a", "prof_b"))
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        summary, extras, counts = _counted_run(argv + [
+            "--viz_interval_iters", str(VIZ_EVERY), "--viz_dir", viz,
+            "--profile_dir", prof_a, "--verbose", "true"])
+    updates = extras["block_updates"]
+    _only(counts, k4=updates)
+    lines = err.getvalue().splitlines()
+    config = [ln for ln in lines if ln.startswith("resolved config: ")]
+    iters = [ln for ln in lines if re.match(r"iter \d+: max_rel_change ", ln)]
+    assert len(config) == 1 and json.loads(config[0][17:])["verbose"] is True
+    assert len(iters) == updates, (len(iters), updates)
+    with open(os.path.join(viz, "snapshots.csv")) as f:
+        rows = f.read().splitlines()[1:]
+    snaps = [int(r.split(",")[0]) for r in rows]
+    assert snaps == list(range(1, updates + 1, VIZ_EVERY)), snaps
+    for r in rows:
+        assert os.path.getsize(os.path.join(viz, r.split(",")[3])) > 0
+    assert os.path.getsize(os.path.join(viz, "latest.html")) > 0
+    events = _trace_events(prof_a)
+    k4_ev = [ev for ev in events if ev.get("cat") in roofline.DEVICE_CATS
+             and "rtr_window_kernel" in ev.get("name", "")]
+    total_a, in_snap = _dtoh(events)
+    _, extras_b, counts_b = _counted_run(argv + ["--profile_dir", prof_b])
+    total_b, _ = _dtoh(_trace_events(prof_b))
+    assert extras_b["block_updates"] == updates
+    per_a = (total_a - in_snap) / updates
+    per_b = total_b / updates
+    print(f"observability: {updates} updates, {len(snaps)} snapshots, K4 {len(k4_ev)} "
+          f"launches in the trace (counter {counts['k4']}), device-to-host copies "
+          f"{total_a} with snapshots ({in_snap} inside them, {per_a:.3f} per update "
+          f"outside) vs {total_b} without ({per_b:.3f} per update); cost "
+          f"{summary['final_cost']:.7g}", flush=True)
+    assert len(k4_ev) == counts["k4"] == updates
+    assert total_a - in_snap == total_b and in_snap > 0
+    assert abs(summary["final_cost"] - engine_summary["final_cost"]) <= (
+        TOL_MODES_COST * engine_summary["final_cost"])
+    # --csv: the same world read back from per-robot CSVs
+    data, _, _ = generate_world("sphere", n=2500, num_robots=5, seed=42)
+    paths = _write_csvs(os.path.join(tmp, "csv"), data)
+    csv_argv = (["--csv", *paths] + DPGO_DEMO[DPGO_DEMO.index("--device"):]
+                + ["--num_robots", "5", "--update_rule", "RoundRobin",
+                   "--local_initialization_method", "Chordal",
+                   "--relative_change_tolerance", "0.2", "--RTR_gradnorm_tol", "0.5"])
+    csum, cext, ccounts = _counted_run(csv_argv)
+    rel = abs(csum["final_cost"] - engine_summary["final_cost"]) / engine_summary["final_cost"]
+    print(f"observability --csv: {json.dumps(csum)}, launches {ccounts}, rel to the "
+          f"generated world's run {rel:.2e}", flush=True)
+    _only(ccounts, k4=cext["block_updates"])
+    assert rel <= TOL_CSV_COST and csum["final_cost"] < cext["initial_cost"]
+    return dict(updates=updates, snapshots=len(snaps), trace_k4_launches=len(k4_ev),
+                dtoh_with_viz=total_a, dtoh_in_snapshots=in_snap, dtoh_without_viz=total_b,
+                dtoh_per_update_outside_snapshots=per_a, dtoh_per_update_without_viz=per_b,
+                csv_final_cost=csum["final_cost"], csv_updates=cext["block_updates"])
+
+
 def _phase(name, fn, *args):
     t = time.time()
     out = fn(*args)
@@ -2587,8 +3009,17 @@ def main() -> int:
     chain_err = _phase("K5/K6 vs plain", phase_compare_chains)
     roof_counts, *cals, _ = _phase("roofline", phase_roofline)
     chains = _phase("K5/K6 timing", phase_timing_chains)
-    # last: its traces of ~80k launches each are the largest of the run
+    # its traces of ~80k launches each are the largest of the run
     fleet_timing = _phase("fleet timing", phase_fleet_timing)
+    # the RGD and observability phases after every other: where the
+    # profiler first ran before the roofline phase, the roofline's short
+    # padded traces lost every device event (PERF.md §7)
+    rgd_err, rgd_shapes = _phase("K2 RGD vs plain on engine windows", phase_compare_rgd)
+    engine_rgd = _phase("engine RGD main path", phase_engine_rgd)
+    fused_rgd = _phase("fused RGD main path", phase_fused_rgd, engine_rgd)
+    with tempfile.TemporaryDirectory() as tmp:
+        obs = _phase("observability", phase_observability, tmp, engine_summary)
+    k2_rgd = _phase("K2 RGD timing", phase_timing_rgd)
     print(json.dumps({"certificate": cert}))
     print(card)
     print(json.dumps({"kernels": [
@@ -2614,6 +3045,13 @@ def main() -> int:
                 spmd_stretch=spmd_stretch, spmd_slot_ms=spmd_timing["k2"][0],
                 spmd_slot_plain_ms=spmd_timing["k2"][1],
                 spmd_slot_bound_ms=spmd_timing["k2"][2][0],
+                engine_rgd_launches={k: v["k2"] for k, v in engine_rgd.items()},
+                fused_rgd_launches={k: v["k2"] for k, v in fused_rgd.items()},
+                engine_rgd=engine_rgd, fused_rgd=fused_rgd,
+                rgd_robot_ms=k2_rgd[0], rgd_robot_plain_ms=k2_rgd[1],
+                rgd_robot_bound_ms=k2_rgd[2][0], rgd_robot_bound_by=k2_rgd[2][1],
+                rgd_robot_call_ms=k2_rgd[3], rgd_max_abs_err=rgd_err,
+                rgd_launch_shapes=rgd_shapes,
                 launch_shapes=run_shapes,
                 ptxas=ptxas[fused_rtr.RUN_SOURCE.stem]),
         _kernel("asapp_tick_fused", "dpgo_ros_tpu_torch/csrc/asapp_tick.cu",
@@ -2628,7 +3066,7 @@ def main() -> int:
                 fleet_launches={d: f["k4"] for d, f in fleets.items()},
                 fleet_window_max_abs_err=fleet_err, fleets=fleets,
                 fleet_timing=fleet_timing,
-                k1_window_call_ms=k1_window_call,
+                k1_window_call_ms=k1_window_call, observability=obs,
                 k4_k1_ms_by_world={w: list(t) for w, t in gate.items()}),
         *(_kernel(name, "dpgo_ros_tpu_torch/csrc/peak_chains.cu", replaces,
                   roof_counts[k], chain_err[name], *chains[name][:3],

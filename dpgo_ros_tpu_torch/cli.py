@@ -103,6 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="dpgo_ros_tpu_torch",
         description="distributed pose-graph optimization (PyTorch/CUDA port)",
     )
+    from dpgo_ros_tpu_torch import __version__
+
+    p.add_argument("--version", action="version", version=f"%(prog)s {__version__}")
     p.add_argument("--demo", choices=["dpgo_demo", "asapp_demo", "dpgo_gnc_demo"])
     p.add_argument("--g2o", help="path to a g2o dataset file")
     p.add_argument("--dataset", help="bundled dataset name (e.g. sphere2500)")
@@ -116,6 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="pull pose graphs from an out-of-process front-end service "
              "(parallel/frontend.py) and push solved trajectories back to it",
     )
+    p.add_argument("--csv", nargs="*", help="per-robot measurements.csv paths")
     p.add_argument("--synthetic_n", type=int, default=1000,
                    help="number of poses (sphere) / lattice size n^(1/3) "
                         "rounded (grid3d)")
@@ -155,6 +159,30 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--log_directory",
                    help="write the reference's per-robot telemetry CSVs here")
+    p.add_argument(
+        "--profile_dir",
+        help="capture a torch.profiler trace of the solve (engine, fused and "
+             "async modes; the card's kernels and copies when on CUDA) into "
+             "this dir as a Chrome trace (Perfetto, chrome://tracing)",
+    )
+    p.add_argument(
+        "--viz_interval", type=float, default=0.0,
+        help="seconds between mid-run trajectory snapshots (0 = off; the "
+             "reference republishes rviz trajectories every 30 s, "
+             "PGOAgentROS.cpp:85-86). Engine/spmd/async/fleet modes.",
+    )
+    p.add_argument(
+        "--viz_interval_iters", type=int, default=None,
+        help="snapshot every N iterations/ticks instead of (or in "
+             "addition to) the wall-clock interval",
+    )
+    p.add_argument(
+        "--viz_dir", default=None,
+        help="snapshot directory (default: <output>_snapshots)",
+    )
+    p.add_argument("--verbose", type=_bool, default=False,
+                   help="print the resolved config and, in engine mode, one "
+                        "line per block update on stderr")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
     p.add_argument("--num_robots", type=int, default=1)
@@ -383,6 +411,7 @@ def args_to_config(a):
         spmd_steps_per_launch=a.spmd_steps_per_launch,
         spmd_stretch_rgd_stepsize=a.spmd_stretch_rgd_stepsize,
         spmd_separator_only=a.spmd_separator_only,
+        verbose=a.verbose,
         seed=a.seed,
     )
 
@@ -403,6 +432,10 @@ def load_data(a):
             outlier_ratio=a.synthetic_outlier_ratio, balance=a.partition_balance,
             **kw
         )
+    if a.csv:
+        from dpgo_ros_tpu_torch.io.csv_loader import load_multi_robot_csv
+
+        return load_multi_robot_csv(a.csv), None, None
     if a.g2o:
         from dpgo_ros_tpu_torch.io.partition import partition_g2o
 
@@ -468,7 +501,8 @@ def run(argv=None) -> Tuple[Dict, Dict]:
     else:
         data, gt, planted = load_data(a)
     if data is None:
-        parser.exit(2, "error: provide --demo, --synthetic, --dataset or --g2o\n")
+        parser.exit(2, "error: provide --demo, --synthetic, --dataset, --g2o "
+                       "or --csv\n")
 
     from dpgo_ros_tpu_torch.models.problem import LiftedProblem
     from dpgo_ros_tpu_torch.ops import rounding
@@ -476,6 +510,10 @@ def run(argv=None) -> Tuple[Dict, Dict]:
     from dpgo_ros_tpu_torch.utils import export
 
     cfg = dataclasses.replace(args_to_config(a), num_robots=data.num_robots)
+    snap = _snapshot_writer(a, data)
+    if cfg.verbose:
+        print("resolved config: "
+              + json.dumps(dataclasses.asdict(cfg), default=str), file=sys.stderr)
     device = torch.device(a.device)
     dtype = torch.float64 if a.dtype == "float64" else torch.float32
     is_async = a.mode == "async" or (a.asynchronous and a.mode == "engine")
@@ -503,7 +541,8 @@ def run(argv=None) -> Tuple[Dict, Dict]:
     t0 = _clock(device)
     if a.mode == "fleet":  # the agents initialize themselves
         prob, st, initial_cost = None, None, None
-        solve = _solve_fleet(data, cfg, device, frontend, a.checkpoint_dir, resume)
+        solve = _solve_fleet(data, cfg, device, frontend, a.checkpoint_dir, resume,
+                             snap)
     else:
         prob = LiftedProblem.from_data(
             data, r=cfg.relaxation_rank, dtype=dtype, device=device
@@ -514,13 +553,13 @@ def run(argv=None) -> Tuple[Dict, Dict]:
         st = eng.initialize()
         initial_cost = float(st.cost)
         if is_async:
-            solve = _solve_async(a, eng, mgr, resume)
+            solve = _solve_async(a, eng, mgr, resume, snap)
         elif a.mode == "spmd":
-            solve = _solve_spmd(a, cfg, eng, st, mesh, mgr, resume)
+            solve = _solve_spmd(a, cfg, eng, st, mesh, mgr, resume, snap)
         else:
             if resume is not None:
                 st = _resume_rbcd(eng, resume)
-            solve = _solve_rbcd(a, eng, mgr)
+            solve = _solve_rbcd(a, eng, mgr, snap)
     t1 = _clock(device)
     out = solve(st)
     t2 = _clock(device)
@@ -573,6 +612,22 @@ def run(argv=None) -> Tuple[Dict, Dict]:
                              initial_cost=initial_cost)
 
 
+def _snapshot_writer(a, data):
+    """The mid-run snapshot writer of ``--viz_interval`` /
+    ``--viz_interval_iters`` (into ``--viz_dir``, default
+    ``<output>_snapshots``, else ``dpgo_snapshots``), or None when both are
+    off. The engine, spmd, async and fleet modes write snapshots; the fused
+    runner has no step between its launches to write them at."""
+    if not (a.viz_interval > 0 or a.viz_interval_iters is not None):
+        return None
+    from dpgo_ros_tpu_torch.utils.snapshots import SnapshotWriter
+
+    snap_dir = a.viz_dir or ((a.output + "_snapshots") if a.output else "dpgo_snapshots")
+    print(f"mid-run snapshots -> {snap_dir}", file=sys.stderr)
+    return SnapshotWriter(snap_dir, data, interval_sec=a.viz_interval,
+                          interval_iters=a.viz_interval_iters)
+
+
 def _checkpoints(a, parser):
     """(CheckpointManager or None, the checkpoint path to resume from or
     None) of ``--checkpoint_dir`` / ``--checkpoint_every`` / ``--resume``
@@ -608,26 +663,43 @@ def _resume_rbcd(eng, path):
     return st
 
 
-def _solve_rbcd(a, eng, mgr=None):
+def _solve_rbcd(a, eng, mgr=None, snap=None):
     """The synchronous modes' solve from the initial (or resumed) state:
     ``--mode fused`` (one K2 launch per GNC stretch) or the engine loop
-    (checkpointed every ``--checkpoint_every`` global iterations), then the
-    final checkpoint, the TERMINATE finalize and rounding."""
+    (checkpointed every ``--checkpoint_every`` global iterations, a
+    snapshot where ``snap`` has one due: the state is read back only
+    then; with ``--verbose`` one line per update), then the final
+    checkpoint, the TERMINATE finalize and rounding. ``--profile_dir``
+    traces the runner."""
+    from dpgo_ros_tpu_torch.utils import profiling
     from dpgo_ros_tpu_torch.utils.config import RobustCostType
+
+    def cb(_, s):
+        # the cadences follow the global iteration, so a resumed run
+        # continues the same checkpoint grid
+        if mgr is not None:
+            mgr.maybe_save(s.iteration, s, eng.Ylift)
+        if snap is not None and snap._due(s.iteration):
+            with profiling.annotate("snapshot"):
+                snap.snapshot(s.iteration, s.X, weights=s.weights, cost=float(s.cost))
 
     def solve(st) -> _Solved:
         rows, iter_times, events = None, None, []
+        trace = profiling.device_trace(a.profile_dir, eng.device)
         if a.mode == "fused":
             # the engine's resolved config carries the GNC iteration budget
             record = bool(a.log_directory)
             cap = eng.config.max_iteration_number
             if eng.config.acceleration:  # a loop of per-step solves, no K2
                 runner = eng.make_fused_run(cap, record=record)
-                out = runner(st)
+                with trace:
+                    out = runner(st)
                 out = (out,) if not record else out
                 stats = runner.last_stats
             else:
-                out = eng.make_fused_run(cap, record=record, return_stats=True)(st)
+                runner = eng.make_fused_run(cap, record=record, return_stats=True)
+                with trace:
+                    out = runner(st)
                 stats = {"tcg_iterations": out[-1], "restarts": 0}
             st = out[0]
             info = {"iterations": st.iteration, "final_cost": float(st.cost), **stats}
@@ -638,14 +710,14 @@ def _solve_rbcd(a, eng, mgr=None):
                 events = [(int(i), "UPDATE_WEIGHT")
                           for i in np.flatnonzero(out[2].numpy())]
         else:
-            # the cadence follows the global iteration, so a resumed run
-            # continues the same checkpoint grid
-            cb = ((lambda _, s: mgr.maybe_save(s.iteration, s, eng.Ylift))
-                  if mgr is not None else None)
-            st, info = eng.run(st, callback=cb)
+            with trace:
+                st, info = eng.run(st, callback=cb if mgr is not None or snap is not None
+                                   else None)
             h = info["history"]
             if h["rel_change_robots"]:
                 rows = np.stack(h["rel_change_robots"])
+                if eng.config.verbose:
+                    _print_updates(h)
             iter_times, events = h["iter_time_sec"], h["event"]
         if mgr is not None:
             mgr.save(st.iteration, st, eng.Ylift,
@@ -667,7 +739,20 @@ def _solve_rbcd(a, eng, mgr=None):
     return solve
 
 
-def _solve_fleet(data, cfg, device, dataset, checkpoint_dir=None, resume=None):
+def _print_updates(h) -> None:
+    """``--verbose`` in engine mode: one line per block update on stderr,
+    the JAX CLI's text (reference verbose telemetry,
+    ``PGOAgentROS.cpp:166-172``), tagged ``[UPDATE_WEIGHT]`` where a weight
+    round fired before the update."""
+    rounds = {i for i, ev in h["event"] if ev == "UPDATE_WEIGHT"}
+    for i, rr in enumerate(h["rel_change_robots"]):
+        print(f"iter {i}: max_rel_change {float(np.max(rr)):.6g} "
+              f"iter_time {h['iter_time_sec'][i]:.4f}s"
+              + (" [UPDATE_WEIGHT]" if i in rounds else ""), file=sys.stderr)
+
+
+def _solve_fleet(data, cfg, device, dataset, checkpoint_dir=None, resume=None,
+                 snap=None):
     """The fleet: one agent per robot on ``device`` (the protocol on the
     host, every synchronous RTR solve one K4 launch on the card), ticked to
     termination; the global trajectory of the agents' final ones and the
@@ -676,7 +761,8 @@ def _solve_fleet(data, cfg, device, dataset, checkpoint_dir=None, resume=None):
     first solve holds a compile. ``dataset`` is a front-end client or
     None. ``resume`` restores the agents' warm-start caches first;
     ``checkpoint_dir`` saves them after the run (the controller's
-    ``restore_checkpoint`` / ``save_checkpoint``)."""
+    ``restore_checkpoint`` / ``save_checkpoint``); ``snap`` writes the live
+    global trajectory on its cadence in ticks."""
     from dpgo_ros_tpu_torch.parallel.controller import DistributedController
     from dpgo_ros_tpu_torch.utils.config import SolverMethod
 
@@ -690,7 +776,7 @@ def _solve_fleet(data, cfg, device, dataset, checkpoint_dir=None, resume=None):
         print(f"fleet resumed warm-start caches from {resume}", file=sys.stderr)
 
     def solve(_) -> _Solved:
-        res = ctl.run()
+        res = ctl.run(snapshot=snap)
         if checkpoint_dir:
             ctl.save_checkpoint(checkpoint_dir, meta={"ticks": res["ticks"]})
             print(f"fleet checkpoint written to {checkpoint_dir}", file=sys.stderr)
@@ -750,7 +836,7 @@ def _maybe_certify(summary, a, X, edges) -> None:
     }
 
 
-def _solve_spmd(a, cfg, eng, st_init, mesh, mgr=None, resume=None):
+def _solve_spmd(a, cfg, eng, st_init, mesh, mgr=None, resume=None, snap=None):
     """The spmd mode (the JAX CLI's loop): the mesh program of
     ``parallel/spmd.py`` on this process's slots of ``mesh`` (M = the
     problem's robots, grouped or repartitioned to fit the mesh), one step
@@ -762,7 +848,8 @@ def _solve_spmd(a, cfg, eng, st_init, mesh, mgr=None, resume=None):
     ``cfg`` is the unresolved config (the loop's iteration budget is
     ``max_iteration_number`` as given, as in the JAX CLI). The slots'
     tables and, on the card, the kernels are built here, in the init
-    phase, from the initial state ``st_init``."""
+    phase, from the initial state ``st_init``. ``snap`` writes the gathered
+    trajectory and weights after each launch it has one due at."""
     from dpgo_ros_tpu_torch.ops import fused_rtr, quadratic
     from dpgo_ros_tpu_torch.parallel import spmd
     from dpgo_ros_tpu_torch.utils import checkpoint as ckpt
@@ -808,6 +895,10 @@ def _solve_spmd(a, cfg, eng, st_init, mesh, mgr=None, resume=None):
                 iter_times.append(time.time() - t_it)
                 if wu:
                     events.append((it - it0, "UPDATE_WEIGHT"))
+            if snap is not None and snap._due(it + 1):
+                snap.snapshot(
+                    it + 1, spmd.gather_trajectory(sp, st, prob.num_poses, mesh),
+                    weights=spmd.gather_weights(sp, st, prob.edges.num_edges, mesh))
             if mgr is not None and mgr.every > 0 and (it + 1) % mgr.every == 0:
                 host = spmd.gather_state(st, M, mesh)
                 if rank0:
@@ -845,17 +936,19 @@ def _solve_spmd(a, cfg, eng, st_init, mesh, mgr=None, resume=None):
     return solve
 
 
-def _solve_async(a, eng, mgr=None, resume=None):
+def _solve_async(a, eng, mgr=None, resume=None, snap=None):
     """The asynchronous (ASAPP) mode's solve from the initial state, or
     from the ASAPP state at ``resume`` (tick counter, ring buffer and delay
     generator included): ASAPP ticks up to ``max_iteration_number`` with
     the per-tick stop at ``asapp_tolerance`` (reference
     ``runOnceAsynchronous``, ``src/PGOAgentROS.cpp:119-127``;
-    ``launch/asapp_demo.launch``), a final checkpoint, then rounding. P⁻¹
-    is built here, in the init phase."""
+    ``launch/asapp_demo.launch``), a snapshot after each chunk where
+    ``snap`` has one due, a final checkpoint, then rounding. P⁻¹ is built
+    here, in the init phase. ``--profile_dir`` traces the ticks."""
     from dpgo_ros_tpu_torch.ops import quadratic, rounding
     from dpgo_ros_tpu_torch.parallel.asapp import ASAPPEngine, ASAPPState
     from dpgo_ros_tpu_torch.utils import checkpoint as ckpt
+    from dpgo_ros_tpu_torch.utils import profiling
 
     prob = eng.problem
     aeng = ASAPPEngine(prob, eng.config)
@@ -866,11 +959,14 @@ def _solve_async(a, eng, mgr=None, resume=None):
         print(f"async resumed from {resume} (tick {resumed.tick})", file=sys.stderr)
 
     def solve(st) -> _Solved:
-        ast, info = aeng.run(
-            st.X if resumed is None else None, state=resumed,
-            num_ticks=aeng.config.max_iteration_number,
-            tol=aeng.config.asapp_tolerance, record=bool(a.log_directory),
-        )
+        on_chunk = (lambda t, s: snap.maybe_snapshot(t, s.X)) if snap is not None else None
+        with profiling.device_trace(a.profile_dir, eng.device):
+            ast, info = aeng.run(
+                st.X if resumed is None else None, state=resumed,
+                num_ticks=aeng.config.max_iteration_number,
+                tol=aeng.config.asapp_tolerance, record=bool(a.log_directory),
+                on_chunk=on_chunk,
+            )
         if mgr is not None:
             mgr.save(ast.tick, ast, None, meta={"tick": ast.tick, "final": True})
             print(f"async checkpoint written to {mgr.step_path(ast.tick)}",

@@ -10,7 +10,9 @@
 // block, the edges touching it and their far endpoints; tables from
 // dpgo_ros_tpu_torch/ops/hbm_rtr.py::prepare_row_windows): one masked RTR
 // solve, or, when rgd_stepsize > 0, one preconditioned Riemannian-gradient
-// step and its retraction (rtr_cluster.cuh). The window is gathered from
+// step and its retraction (rtr_cluster.cuh), which keeps the carried cost
+// unless rgd_cost is set (as the Pallas kernel does; the engine's one-step
+// RGD launches set it, for two more cost passes over the window). The window is gathered from
 // the current X at every step. Only the block's poses are written back,
 // in place, so every other pose stays bit-exact. Each row robot's
 // displacement `moved` reduces over its block poses; `updated` is 1 for
@@ -68,6 +70,7 @@ struct RunArgs {
   float* relw;         // (nc, 3R): each CTA's rel, moved, updated
   int R, it0, last_wu, gnc_pending, gnc, inner, use_inner_tol, it_cap;
   float inner_tol, tol, rgd_stepsize;
+  int rgd_cost;  // RGD steps move the carried cost by the window's f − f0
   Params q;
 };
 
@@ -132,7 +135,24 @@ __global__ void __launch_bounds__(THREADS, 1) rtr_run_kernel(RunArgs a) {
     gather<DD, RR>(w, a.g, wk);  // from the current X
     cl.sync();
     if (a.rgd_stepsize > 0.f) {
+      float f0 = 0.f;
+      if (a.rgd_cost) {
+        // the window's cost before the step (the gradient goes to the
+        // owner region's first vector, which the step does not use), and
+        // the separators into the step's output buffer, where the cost
+        // after the step reads them (the step writes block poses only)
+        f0 = egrad_cost<DD, RR>(w, wk, wk.X, own, red, par);
+        for (int i = (w.lo > w.nb ? w.lo : w.nb) + tid; i < w.hi; i += THREADS) {
+          Blk<DD, RR> v;
+          ld_pose<DD, RR>(wk.X, i, v);
+          st_pose<DD, RR>(wk.Xt, i, v);
+        }
+      }
       rgd_step<DD, RR>(w, wk, a.rgd_stepsize);
+      if (a.rgd_cost) {
+        cl.sync();  // every CTA's stepped block poses are written
+        cost += egrad_cost<DD, RR>(w, wk, wk.X, own, red, par) - f0;
+      }
       tcg += 1;
     } else {
       const SolveOut s = solve<DD, RR>(w, wk, a.q, red, par);
@@ -229,7 +249,8 @@ int dpgo_rtr_run(int d, int r, int D, int num_robots, int m_rows, int it_cap, in
                  const int* row_robots, const float* adj, const float* rel0,
                  const float* cost0, float* rel, float* stats, float* rel_hist, float* work,
                  int it0, int last_wu, int gnc_pending, int gnc, int inner, int use_inner_tol,
-                 float inner_tol, float tol, float rgd_stepsize, int max_iterations,
+                 float inner_tol, float tol, float rgd_stepsize, int rgd_cost,
+                 int max_iterations,
                  int max_tcg, float gradnorm_tol, float initial_radius, float max_radius,
                  float tcg_kappa, float tcg_theta, void* stream) {
   if (r < 1 || r > 8 || (d != 2 && d != 3) || num_robots < 1 || m_rows < 1 || it_cap < 0 ||
@@ -275,6 +296,7 @@ int dpgo_rtr_run(int d, int r, int D, int num_robots, int m_rows, int it_cap, in
   a.inner_tol = inner_tol;
   a.tol = tol;
   a.rgd_stepsize = rgd_stepsize;
+  a.rgd_cost = rgd_cost;
   a.q.max_iterations = max_iterations;
   a.q.max_tcg = max_tcg;
   a.q.gradnorm_tol = gradnorm_tol;

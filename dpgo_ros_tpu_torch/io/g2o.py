@@ -17,16 +17,15 @@ SE-Sync extracts::
   kappa = 3 / (2 * (1/I44 + 1/I55 + 1/I66))     (rotational concentration)
 
 This is a pure NumPy host-side loader — parsing is not on the hot path; the
-result feeds static-shape device tensors.
+result feeds static-shape device tensors. 3D files go through the native
+C++ reader (``io/native.py``) when it is available.
 
-Copy of ``dpgo_ros_tpu/io/g2o.py`` for the PyTorch port, with the Python
-parser only: the JAX package's native C++ reader (``native/g2o_parser.cpp``)
-is reached through ``dpgo_ros_tpu/io/native.py``, a module of the JAX
-package, which this package does not import.
+Copy of ``dpgo_ros_tpu/io/g2o.py`` for the PyTorch port.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -95,7 +94,17 @@ def read_g2o(
     ``read_g2o_file(filename, num_poses)`` contract
     (``src/PGODatasetPublisherNode.cpp:80-83``).
 
+    Uses the native C++ parser (``native/g2o_parser.cpp`` through
+    ``io/native.py``, 3D files only) when available; set
+    ``DPGO_TPU_NO_NATIVE=1`` to force the Python path.
     """
+    if os.environ.get("DPGO_TPU_NO_NATIVE") != "1":
+        from dpgo_ros_tpu_torch.io import native
+
+        if native.available():
+            out = native.read_g2o_native(path)
+            if out is not None and (len(out[0]) > 0 or out[2] is not None):
+                return out
     src, dst = [], []
     Rs, ts, kappas, taus = [], [], [], []
     vertices: Dict[int, np.ndarray] = {}

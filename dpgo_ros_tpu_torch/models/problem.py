@@ -9,7 +9,7 @@ structure so host-side preparation never reads the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,3 +114,42 @@ class LiftedProblem:
             device=self.device,
         )
         return m[:, None, None]
+
+    # --- bookkeeping parity with DPGO::PoseGraph ---
+
+    def num_measurements(self) -> int:
+        """Live measurements (from the host mirror: no device read)."""
+        return int(np.sum(self.host_edges.mask > 0))
+
+    def counts_by_type(self) -> Tuple[int, int, int]:
+        """(odometry, private loop closures, shared loop closures)."""
+        if self.data is None:
+            raise ValueError("counts_by_type needs the problem's PoseGraphData")
+        return self.data.counts_by_type()
+
+    def pose_block(self, X: torch.Tensor, robot_id: int) -> torch.Tensor:
+        """Robot ``robot_id``'s rows of the global state (a view)."""
+        o = int(self.offsets[robot_id])
+        return X[o:o + int(self.num_poses[robot_id])]
+
+    def global_trajectory(self, data: PoseGraphData) -> Optional[np.ndarray]:
+        """Per-robot initial-guess trajectories stacked into (n, d, d+1),
+        or None without an initial guess."""
+        if data.initial_guess is None:
+            return None
+        return np.concatenate(
+            [data.initial_guess[k] for k in range(data.num_robots)], axis=0
+        )
+
+    def separator_mask(self, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """(n,) mask of the poses touched by inter-robot edges — the public
+        poses the reference exchanges (``msg/PublicPoses.msg``), for
+        communication-volume telemetry; built from the host mirror and
+        placed on the problem's device."""
+        he = self.host_edges
+        rop = self.robot_of_pose
+        shared = (rop[he.src] != rop[he.dst]) & (he.mask > 0)
+        m = np.zeros(self.n, bool)
+        m[he.src[shared]] = True
+        m[he.dst[shared]] = True
+        return torch.as_tensor(m, dtype=dtype or self.dtype, device=self.device)

@@ -53,6 +53,13 @@ def se_identity(d: int, *, dtype: torch.dtype, device) -> torch.Tensor:
     )
 
 
+def rotation_geodesic_distance(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    """Angular distance (radians) between (..., d, d) rotations."""
+    tr = torch.einsum("...ij,...ij->...", Ra, Rb)
+    c = (tr - 1.0) / 2.0 if Ra.shape[-1] == 3 else tr / 2.0
+    return torch.arccos(torch.clamp(c, -1.0, 1.0))
+
+
 def odometry_chain(
     rel: torch.Tensor, T0: Optional[torch.Tensor] = None
 ) -> torch.Tensor:

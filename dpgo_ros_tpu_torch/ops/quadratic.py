@@ -189,6 +189,16 @@ def precond_blocks(
     )
 
 
+def precond_solve(P: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """V_i ← V_i P_i⁻¹ by a batched Cholesky solve of the SPD blocks
+    (row-vector convention). Hot loops use :func:`precond_inverse` once
+    and :func:`precond_apply` instead."""
+    L = torch.linalg.cholesky(P)
+    Z = torch.linalg.solve_triangular(L, V.transpose(-1, -2), upper=False)
+    Xt = torch.linalg.solve_triangular(L.transpose(-1, -2), Z, upper=True)
+    return Xt.transpose(-1, -2)
+
+
 def precond_inverse(P: torch.Tensor) -> torch.Tensor:
     """Batched inverse of the SPD blocks through Cholesky: L⁻ᵀ L⁻¹."""
     L = torch.linalg.cholesky(P)

@@ -33,6 +33,17 @@ def round_solution(X: torch.Tensor) -> torch.Tensor:
     return torch.cat([Rr, Xd[:, :, d:]], dim=-1)
 
 
+def round_via_lifting(X: torch.Tensor, Ylift: torch.Tensor) -> torch.Tensor:
+    """Per-pose world-frame recovery through the shared lifting matrix:
+    R_i = proj_SO(YLiftᵀ Y_i), t_i = YLiftᵀ p_i — how a robot recovers its
+    SE(d) poses mid-solve (the reference's ``getPoseInGlobalFrame``), with
+    no global SVD. Exact when X = YLift·T; :func:`round_solution` is the
+    final-answer variant."""
+    d = X.shape[-1] - 1
+    Z = torch.einsum("rd,nrk->ndk", Ylift, X)
+    return torch.cat([project_to_so(Z[:, :, :d]), Z[:, :, d:]], dim=-1)
+
+
 def anchor_to_first_pose(
     T: torch.Tensor, anchor: Optional[torch.Tensor] = None
 ) -> torch.Tensor:

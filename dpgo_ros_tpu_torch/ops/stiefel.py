@@ -65,6 +65,16 @@ def retract_polar_ns(
     return join(Z, p + Vp)
 
 
+def retract_qr(X: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """QR retraction (sign-fixed thin QR of the r×d blocks)."""
+    Y, p = split(X)
+    VY, Vp = split(V)
+    Q, R = torch.linalg.qr(Y + VY)
+    s = torch.sign(torch.diagonal(R, dim1=-2, dim2=-1))
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    return join(Q * s[..., None, :], p + Vp)
+
+
 def random_stiefel(
     generator: torch.Generator, n: int, r: int, d: int,
     *, dtype: torch.dtype = torch.float64, device="cpu",

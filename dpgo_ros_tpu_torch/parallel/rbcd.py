@@ -17,11 +17,14 @@ Two runners drive the same step semantics:
   Uniform or RoundRobin update is one ``hbm_rtr.rtr_solve_hbm`` call (K4)
   on the robot's gathered window, each Parallel update one
   ``fused_rtr.rtr_solve_fused`` call (K1) on the colour class's window
-  (:attr:`RBCDEngine._row_windows`, K2's).
+  (:attr:`RBCDEngine._row_windows`, K2's). With ``solver = RGD`` each
+  update, of any rule, is one ``fused_rtr.rtr_run_fused`` call (K2's RGD
+  variant) of one step on the same window (:meth:`RBCDEngine._local_solve`).
 * :meth:`RBCDEngine.make_fused_run` (``--mode fused``) — one
   ``fused_rtr.rtr_run_fused`` call (K2) per stretch between GNC weight
-  rounds (an L2 run is one call), each step on its bank row's window; with
-  acceleration a host loop of the engine's accelerated steps instead.
+  rounds (an L2 run is one call), each step on its bank row's window, an
+  RTR solve or an RGD step; with acceleration a host loop of the engine's
+  accelerated steps instead.
 
 Each call is the CUDA kernel on a CUDA device (float32 only) and its plain
 version on the CPU. Robust costs run weight rounds between steps: GNC-TLS
@@ -118,10 +121,6 @@ def state_from_numpy(
     return RBCDState(**out)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to dpgo_ros_tpu_torch yet")
-
-
 class RBCDEngine:
     def __init__(self, problem: LiftedProblem, config: AgentConfig):
         self.problem = problem
@@ -148,6 +147,9 @@ class RBCDEngine:
             max_tcg_iterations=cfg.RTR_tCG_iterations,
             gradnorm_tol=cfg.RTR_gradnorm_tol,
         )
+        # an asynchronous config resolves to RGD; such an engine also
+        # serves the ASAPP engine's initialization
+        self._rgd = cfg.solver == SolverMethod.RGD
         nR = problem.num_robots
         rof = np.asarray(problem.robot_of_pose)
         onehot = np.stack([(rof == k) for k in range(nR)], axis=0)
@@ -181,6 +183,36 @@ class RBCDEngine:
         rows = [np.flatnonzero(self.robot_colors == c) for c in range(self.num_colors)]
         return hbm_rtr.prepare_row_windows(self.problem, rows)
 
+    @functools.cached_property
+    def _bank(self) -> torch.Tensor:
+        """(m, n) K2's mask bank: one row per window of
+        :attr:`_row_windows` (colour unions for Parallel, else robots)."""
+        bank = (self._color_masks if self.config.update_rule == UpdateRule.PARALLEL
+                else self._masks)
+        return bank[:, :, 0, 0].contiguous()
+
+    @functools.cached_property
+    def _row_sched(self) -> List[torch.Tensor]:
+        """One-entry K2 schedules, one per bank row (an RGD update's)."""
+        return [torch.tensor([k], dtype=torch.int32, device=self.device)
+                for k in range(self._bank.shape[0])]
+
+    @functools.cached_property
+    def _rel_zero(self) -> torch.Tensor:
+        """K2's incoming rel change for a one-step RGD launch (the engine
+        computes its own in :meth:`_finish_step`)."""
+        return torch.zeros(self.problem.num_robots, dtype=self.dtype, device=self.device)
+
+    @functools.cached_property
+    def _identity_pinv(self) -> torch.Tensor:
+        """(n, d+1, d+1) identities: K2's P⁻¹ for RGD without the
+        preconditioner (the step's direction is then mask · proj(X, grad),
+        the masked Riemannian gradient, which is JAX's unpreconditioned
+        ``rgd_step``)."""
+        dp1 = self.problem.d + 1
+        eye = torch.eye(dp1, dtype=self.dtype, device=self.device)
+        return eye.expand(self.problem.n, dp1, dp1).contiguous()
+
     def update_schedule(self, upto: int, schedule=None) -> np.ndarray:
         """(upto,) int64 bank row of each absolute iteration 0..upto-1: the
         colour class for Parallel, the robot for RoundRobin (in turn) and
@@ -201,13 +233,6 @@ class RBCDEngine:
             gen = torch.Generator().manual_seed(self.config.seed)
             return torch.randint(0, rows, (upto,), generator=gen).numpy()
         return np.arange(upto, dtype=np.int64) % rows
-
-    def _require_rtr(self) -> None:
-        """The runners solve blocks with RTR only. An asynchronous config
-        resolves to the RGD solver; such an engine still serves
-        :meth:`initialize` (the ASAPP engine's initial state), as in JAX."""
-        if self.config.solver != SolverMethod.RTR:
-            _not_ported(f"the {self.config.solver.value} block-update solver")
 
     def _t(self, x) -> torch.Tensor:
         return torch.tensor(np.asarray(x), dtype=self.dtype, device=self.device)
@@ -241,13 +266,11 @@ class RBCDEngine:
         blocks for RoundRobin and Uniform, colour unions for Parallel) and
         the (max_iters,) int32 bank row of each absolute iteration
         (:meth:`update_schedule`), built on the host."""
-        bank = (self._color_masks if self.config.update_rule == UpdateRule.PARALLEL
-                else self._masks)
         sched = torch.as_tensor(
             self.update_schedule(max_iters, schedule), dtype=torch.int32,
             device=self.device,
         )
-        return bank[:, :, 0, 0].contiguous(), sched
+        return self._bank, sched
 
     # ------------------------------------------------------------------ init
 
@@ -405,19 +428,38 @@ class RBCDEngine:
 
     def _solver_cache(self, e: EdgeSet) -> torch.Tensor:
         """Damped block-Jacobi inverse for the current weights, computed
-        once per weight set and passed to every block solve."""
+        once per weight set and passed to every block solve (identities for
+        RGD without the preconditioner)."""
+        if self._rgd and not self.config.RGD_use_preconditioner:
+            return self._identity_pinv
         return quadratic.precond_inverse(
             quadratic.precond_blocks(e, self.problem.n)
         ).contiguous()
 
-    def _local_solve(self, Xs, e, mask, Pinv, robot=None, color=None):
+    def _local_solve(self, Xs, e, mask, Pinv, robot=None, color=None, cost=0.0):
         """One masked block solve from ``Xs`` → (X with the block solved,
         stats): K4 on robot ``robot``'s window for a sequential step, K1 on
         colour ``color``'s window for a Parallel one (each the kernel for
         CUDA tensors, its plain version, full-width under ``mask``, for CPU
         tensors). K4's f is its window's local cost, K1's the world's. Both
         read the window's separators from ``Xs``, so an accelerated step
-        solves against the auxiliary state V by passing it here."""
+        solves against the auxiliary state V by passing it here.
+
+        With ``solver = RGD`` the update is one preconditioned RGD step (JAX
+        ``rgd_solve``, one step) as one K2 launch of one step on the row's
+        window (robot or colour), and stats are K2's: ``RUN_COST`` is
+        ``cost`` (the cost of ``Xs``) moved by the step, the world's cost
+        after it."""
+        if self._rgd:
+            row = robot if robot is not None else color
+            X_new, _, stats = fused_rtr.rtr_run_fused(
+                Xs, self._bank, self._row_sched[row], Pinv, e, self.rtr_params,
+                adj=self._adjf, rel0=self._rel_zero, it0=0, last_wu=0,
+                gnc_pending=False, cost0=cost, it_cap=1, tol=0.0, gnc=False,
+                inner=1, inner_tol=None, rgd_stepsize=self.config.RGD_stepsize,
+                rgd_cost=True, offsets=self._offsets, windows=self._row_windows,
+            )
+            return X_new, stats
         if robot is not None and SEQUENTIAL_ON_WINDOWS:
             return hbm_rtr.rtr_solve_hbm(
                 Xs, robot, Pinv, e, self.rtr_params, self._windows
@@ -432,9 +474,12 @@ class RBCDEngine:
     def _plain_update(self, st: RBCDState, mask, e, Pinv, route):
         """One block update without acceleration: (state, rc, tCG). The
         windowed route (K4) carries the global cost as cost + (f − f0): only
-        block poses move, so the world's cost moves by the window's."""
-        X_new, stats = self._local_solve(st.X, e, mask, Pinv, **route)
-        if route.get("robot") is not None and SEQUENTIAL_ON_WINDOWS:
+        block poses move, so the world's cost moves by the window's; so
+        does an RGD step (K2's cost)."""
+        X_new, stats = self._local_solve(st.X, e, mask, Pinv, cost=st.cost, **route)
+        if self._rgd:
+            cost = stats[fused_rtr.RUN_COST].to(self.dtype)
+        elif route.get("robot") is not None and SEQUENTIAL_ON_WINDOWS:
             dcost = stats[fused_rtr.S_F] - stats[fused_rtr.S_F0]
             cost = st.cost + dcost.to(self.dtype)
         else:
@@ -504,7 +549,7 @@ class RBCDEngine:
         change is the Frobenius norm of its block's update
         (``relative_change_metric="block_frobenius"``) or its largest
         per-pose update norm (``"max_pose"``). Returns (state, rel change of
-        this step, tCG iterations of the solve)."""
+        this step, tCG iterations of the solve: none for an RGD step)."""
         per_pose2 = torch.sum((X_new - st.X) ** 2, dim=(-2, -1))
         sel = mask[:, 0, 0]
         if self.config.relative_change_metric == "max_pose":
@@ -527,7 +572,7 @@ class RBCDEngine:
             iteration=st.iteration + 1,
             cost=cost,
             rel_change=rel_change,
-        ), rc, stats[fused_rtr.S_TCG]
+        ), rc, 0 if self._rgd else stats[fused_rtr.S_TCG]
 
     def _step(self, st: RBCDState, row: int, Pinv=None):
         """One scheduled block update: the robot holding the update token
@@ -631,7 +676,6 @@ class RBCDEngine:
         its solves), the accelerated steps that restarted and, for robust
         costs, ``gnc_stats``."""
         cfg = self.config
-        self._require_rtr()
         if state is None:
             state = self.initialize()
         max_iters = max_iters or cfg.max_iteration_number
@@ -737,7 +781,6 @@ class RBCDEngine:
         kernel the same way); ``return_stats=True`` then raises ValueError.
         """
         cfg, prob = self.config, self.problem
-        self._require_rtr()
         if cfg.acceleration:
             if return_stats:
                 raise ValueError("return_stats requires the multi-step fused runner")
@@ -785,6 +828,7 @@ class RBCDEngine:
                     cost0=cost, it_cap=max_iters,
                     tol=cfg.relative_change_tolerance, gnc=gnc, inner=inner,
                     inner_tol=cfg.robust_opt_inner_tol, record=record,
+                    rgd_stepsize=cfg.RGD_stepsize if self._rgd else 0.0,
                     offsets=self._offsets, windows=windows,
                 )
                 X, rel, stats = out[:3]

@@ -44,7 +44,6 @@ writes the same object to a file (never to the repository's
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import math
 import os
@@ -55,7 +54,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from dpgo_ros_tpu_torch.io import datasets
 from dpgo_ros_tpu_torch.io.synthetic import generate_world
@@ -66,6 +64,9 @@ from dpgo_ros_tpu_torch.ops import (chordal, fused_asapp, fused_rtr, hbm_rtr, pe
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
 from dpgo_ros_tpu_torch.scripts import measure_peaks
 from dpgo_ros_tpu_torch.utils.config import AgentConfig, RobustCostType, UpdateRule
+# the padded trace lives in utils/profiling.py; scripts/trace_pad.py and
+# chip_smoke.py reach it through this module
+from dpgo_ros_tpu_torch.utils.profiling import padded_profile
 from dpgo_ros_tpu_torch.utils.work import (
     FP32_FLOPS_PER_S,
     HBM_BYTES_PER_S,
@@ -218,29 +219,6 @@ def session_busy_ms(events, launched: int = 0) -> float:
         raise RuntimeError(f"{len(foreign)} of {len(dev)} device intervals in the trace "
                            "were not launched in the traced session")
     return busy_us([(e["ts"], e["dur"]) for e in dev]) / 1e3
-
-
-# host sleep (s) at each end of a traced call. The card's timestamps in a
-# trace at times jump against the host's, up to 5.7 ms before the launch
-# that made them, and the profiler drops a device interval that falls
-# outside the session's host window: 13 of 2,468 unpadded traces of short
-# K4 solves lost kernels, none of 2,468 padded by 20 ms
-# (``scripts/trace_pad.py``; PERF.md, PR 9)
-TRACE_PAD_S = 0.02
-
-
-@contextlib.contextmanager
-def padded_profile(activities=(ProfilerActivity.CPU, ProfilerActivity.CUDA),
-                   pad: float = TRACE_PAD_S):
-    """torch.profiler around the ``with`` body, the card synchronized
-    before and after it and the session held open ``pad`` seconds on each
-    side, so that every device interval of the body lies inside it."""
-    torch.cuda.synchronize()
-    with profile(activities=list(activities)) as prof:
-        time.sleep(pad)
-        yield prof
-        torch.cuda.synchronize()
-        time.sleep(pad)
 
 
 def _device_ms(fn) -> float:

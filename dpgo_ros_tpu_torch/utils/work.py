@@ -63,7 +63,13 @@ def outside_work(prob, mask: np.ndarray) -> Tuple[int, float]:
     Eo = prob.edges.num_edges - Ek
     C = prob.r * (prob.d + 1)
     nbytes = edge_bytes(Eo, prob.d) + 4 * C * (prob.n - nk - ns)
-    return nbytes, float(Eo * prob.r * (2 * prob.d * prob.d + 4 * prob.d + 4))
+    return nbytes, cost_flops(Eo, prob.r, prob.d)
+
+
+def cost_flops(E: int, r: int, d: int) -> float:
+    """The cost over ``E`` edges: per edge and row of r a residual and its
+    square, 2d² + 4d + 4."""
+    return float(E * r * (2 * d * d + 4 * d + 4))
 
 
 # Operation counts from the kernels' algebra: one pass of the linear edge

@@ -132,12 +132,12 @@ def test_every_block_update_goes_through_rtr_solve_fused(
 
 @pytest.mark.parametrize("what", ["acceleration", "gnc", "uniform"])
 def test_unported_features_raise(problems, what):
-    """Acceleration and the Uniform rule are now ported, so their engines
-    build and run where they raised before (their parity with JAX is
-    tests/test_torch_acceleration.py's and test_torch_repairs.py's); GNC
-    is, but the runners do not solve blocks with the asynchronous mode's
-    RGD solver — an async engine is built (its ``initialize`` serves the
-    ASAPP engine, as in JAX) and its runners refuse."""
+    """Acceleration, the Uniform rule and the asynchronous mode's RGD
+    block solver are now ported, so their engines build and run where they
+    raised before (their parity with JAX is tests/test_torch_acceleration.py's,
+    test_torch_repairs.py's and test_torch_rgd.py's): a GNC engine under an
+    async config (its ``initialize`` also serves the ASAPP engine, as in
+    JAX) runs RGD block updates in both runners."""
     _, tp = problems
     kw = {
         "acceleration": dict(acceleration=True),
@@ -151,10 +151,12 @@ def test_unported_features_raise(problems, what):
         assert info["history"]["cost"][-1] < float(eng.initialize(ylift=np.eye(5, 3)).cost)
         return
     eng = RBCDEngine(tp, port_config(_cfg(**kw)))
-    with pytest.raises(NotImplementedError):
-        eng.run(max_iters=1)
-    with pytest.raises(NotImplementedError):
-        eng.make_fused_run(4)
+    st0 = eng.initialize(ylift=np.eye(5, 3))
+    st, info = eng.run(st0, max_iters=2)
+    assert info["iterations"] == 2 and info["tcg_iterations"] == 0
+    assert info["history"]["cost"][-1] < float(st0.cost)
+    st_f = eng.make_fused_run(4)(st0)
+    assert st_f.iteration == 4 and float(st_f.cost) < float(st0.cost)
 
 
 def test_async_config_initializes(problems):

@@ -195,6 +195,8 @@ def _imports(path: Path):
     "dpgo_ros_tpu_torch/utils/checkpoint.py",
     "dpgo_ros_tpu_torch/scripts/multihost_demo.py",
     "dpgo_ros_tpu_torch/scripts/multicard_check.py",
+    "dpgo_ros_tpu_torch/io/native.py", "dpgo_ros_tpu_torch/utils/snapshots.py",
+    "dpgo_ros_tpu_torch/utils/profiling.py",
 ])
 def test_port_imports_nothing_of_the_jax_package(where):
     root = REPO / where
