@@ -184,7 +184,16 @@ Phases (any failure exits nonzero; nothing is caught):
      the verbose lines), and ``--csv`` on per-robot CSVs of the world
      written in the phase;
  33. K2's one-step RGD launch on robot 0's window timed (device ms, ms per
-     wrapper call, plain, bound).
+     wrapper call, plain, bound);
+ 34. (after every traced phase) checkpoints: the dpgo_demo engine (fp32,
+     K4) run 7 updates, its CUDA state saved through the dcp backend
+     (``torch.distributed.checkpoint``) and through npz, each loaded onto
+     the card by the CLI's resume into a fresh engine and run 5 more: cost
+     and X bit-identical to the uninterrupted 12-update run, K4 once per
+     resumed update; two processes on the card (gloo) save and load one
+     state collectively (``scripts/dcp_check.py``), bit for bit; one line
+     ``checkpoint_dcp: {...}`` with the save and load ms, the bytes on
+     disk and the card's name and power limit.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
@@ -222,6 +231,7 @@ import json
 import math
 import os
 import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -257,8 +267,9 @@ from dpgo_ros_tpu_torch.parallel.rbcd import (
     state_from_numpy,
     state_to_numpy,
 )
-from dpgo_ros_tpu_torch.scripts import measure_peaks, roofline
-from dpgo_ros_tpu_torch.utils import hostmath
+from dpgo_ros_tpu_torch.parallel.multihost import free_port
+from dpgo_ros_tpu_torch.scripts import dcp_check, measure_peaks, roofline
+from dpgo_ros_tpu_torch.utils import checkpoint as ckpt, hostmath
 from dpgo_ros_tpu_torch.utils.work import (
     FP32_FLOPS_PER_S,
     block_work,
@@ -2414,12 +2425,7 @@ def phase_spmd_compare() -> dict:
 
 
 def _demo_procs(tmp, tag, num_processes, local, steps, *extra):
-    import socket
-    import subprocess
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    port = free_port()
     return [subprocess.Popen(
         [sys.executable, "-m", "dpgo_ros_tpu_torch.scripts.multihost_demo",
          "--num_processes", str(num_processes), "--process_id", str(pid),
@@ -2950,6 +2956,66 @@ def phase_observability(tmp: str, engine_summary) -> dict:
                 csv_final_cost=csum["final_cost"], csv_updates=cext["block_updates"])
 
 
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_checkpoint_dcp(tmp: str, card: str) -> dict:
+    """The dpgo_demo engine (fp32, K4, rel-change stop off) runs 7 updates;
+    its CUDA state is saved through dcp and through npz, each loaded by the
+    CLI's resume (``load_state(device="cuda")``) into a fresh engine, and
+    run 5 more: the final cost and X bit-identical to the uninterrupted
+    12-update run, K4 once per resumed update (each save timed twice: the
+    first pays the backend's imports). Then two processes on the
+    card (gloo) save and load one fp32 state collectively
+    (``scripts/dcp_check.py``), bit for bit. Returns the readings."""
+    full_eng, st0 = _demo_engine(DPGO_DEMO, relative_change_tolerance=0.0)
+    full, _ = full_eng.run(st0, max_iters=12)
+    eng, st0 = _demo_engine(DPGO_DEMO, relative_change_tolerance=0.0)
+    part, _ = eng.run(st0, max_iters=7)
+    out = {"card": card}
+    for backend in ("dcp", "npz"):
+        path = os.path.join(tmp, backend)
+        # the first save pays the backend's imports; the second replaces it
+        first_ms, save_ms = (dcp_check.synced_ms(lambda: ckpt.save_state(
+            path, part, eng.Ylift, backend=backend), DEV)[1] for _ in range(2))
+        fresh, _ = _demo_engine(DPGO_DEMO, relative_change_tolerance=0.0)
+        st, load_ms = dcp_check.synced_ms(lambda: cli._resume_rbcd(fresh, path), DEV)
+        for f, v in st._asdict().items():
+            floating = isinstance(v, torch.Tensor) and v.is_floating_point()
+            assert not floating or v.device.type == DEV.type, f
+        _zero_counts()
+        done, _ = fresh.run(st, max_iters=5)
+        _only(_counts(), k4=5)
+        assert done.iteration == 12, done.iteration
+        assert torch.equal(done.X, full.X) and torch.equal(done.cost, full.cost), backend
+        out[backend] = {"first_save_ms": first_ms, "save_ms": save_ms, "load_ms": load_ms,
+                        "bytes": _dir_bytes(path), "final_cost": float(done.cost)}
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dpgo_ros_tpu_torch.scripts.dcp_check",
+         "--num_processes", "2", "--process_id", str(pid),
+         "--coordinator", f"localhost:{port}", "--path", os.path.join(tmp, "pair", "ck"),
+         "--device", DEV.type, "--n", "2500"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    pair = []
+    for pid, p in enumerate(procs):
+        so, se = p.communicate(timeout=300)
+        assert p.returncode == 0, f"dcp_check process {pid} failed:\n{se[-3000:]}"
+        line = [l for l in so.splitlines() if l.startswith("DCP_RESULT")]
+        assert line, so[-2000:]
+        pair.append(json.loads(line[0].split(" ", 1)[1]))
+    assert all(r["device"].startswith(DEV.type) and r["backend"] == "gloo"
+               and r["files"] == ["ck"] for r in pair), pair
+    out["two_processes"] = {k: [r[k] for r in pair]
+                            for k in ("first_save_ms", "save_ms", "load_ms")}
+    out["two_processes"]["dcp_files"] = pair[0]["dcp_files"]
+    print(f"checkpoint_dcp: {json.dumps(out)}", flush=True)
+    return out
+
+
 def _phase(name, fn, *args):
     t = time.time()
     out = fn(*args)
@@ -3020,6 +3086,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         obs = _phase("observability", phase_observability, tmp, engine_summary)
     k2_rgd = _phase("K2 RGD timing", phase_timing_rgd)
+    # after every traced phase (PERF.md §7)
+    with tempfile.TemporaryDirectory() as tmp:
+        _phase("checkpoint dcp", phase_checkpoint_dcp, tmp, card)
     print(json.dumps({"certificate": cert}))
     print(card)
     print(json.dumps({"kernels": [

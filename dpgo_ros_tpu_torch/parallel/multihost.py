@@ -14,6 +14,7 @@ GNC round's gathers are ``torch.distributed`` collectives across processes.
   process-contiguous slot ranges, so process p owns slots
   [p·L, (p+1)·L) of the global ``global_slots()``.
 * :func:`is_multihost` — more than one process.
+* :func:`free_port` — a free localhost port for a coordinator address.
 
 Backends: NCCL where every process has a card of its own; gloo otherwise —
 on the CPU, and where several processes share one card (NCCL refuses two
@@ -31,6 +32,7 @@ against 1 × 4.
 from __future__ import annotations
 
 import dataclasses
+import socket
 from typing import Optional
 
 import torch
@@ -135,6 +137,14 @@ def global_slots() -> int:
 
 def is_multihost() -> bool:
     return _MESH is not None and _MESH.num_processes > 1
+
+
+def free_port() -> int:
+    """A TCP port on localhost that no socket holds now: the coordinator
+    port of a run whose processes all start on this machine."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def shutdown() -> None:

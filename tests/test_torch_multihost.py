@@ -12,7 +12,6 @@ processes, ends bit-identical to the uninterrupted 24-step run.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -27,15 +26,9 @@ DEMO = ["-m", "dpgo_ros_tpu_torch.scripts.multihost_demo", "--device", "cpu",
         "--synthetic", "sphere", "--synthetic_n", "400"]
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _launch(num_processes, local, steps, x_out, *extra):
     """Start one demo process per rank; returns the Popen list."""
-    port = _free_port()
+    port = multihost.free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
     return [
         subprocess.Popen(
