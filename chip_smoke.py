@@ -193,7 +193,15 @@ Phases (any failure exits nonzero; nothing is caught):
      resumed update; two processes on the card (gloo) save and load one
      state collectively (``scripts/dcp_check.py``), bit for bit; one line
      ``checkpoint_dcp: {...}`` with the save and load ms, the bytes on
-     disk and the card's name and power limit.
+     disk and the card's name and power limit;
+ 35. (after 34) the port's headline harness (``scripts/bench.py``) on the
+     dpgo_demo world, one region of 4 chained gauge-rotated solves of 100
+     updates per route, the counters zeroed just before: every solve ran
+     100 updates, the final costs within bench.py's band, K2 once per solve
+     on the fused routes (Parallel, RoundRobin), K4 once per update on the
+     engine route, nothing else, and each route's per-solve wall at least
+     0.9 × its tCG per solve × phase 15's least per-tCG slope; the bench's
+     JSON line (block updates/s, tCG per solve, host reads per solve).
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
@@ -221,7 +229,8 @@ main path and K2's on each stretch path, with the slot-window times
 ``engine_rgd_launches`` and ``fused_rgd_launches`` are its launches on the
 engine and fused RGD paths, with the one-step RGD launch's times on a
 robot window (``rgd_robot_ms`` and the plain, bound and call times beside
-it); K4's ``observability`` holds phase 32's readings.
+it); K4's ``observability`` holds phase 32's readings; ``bench_launches``
+are K2's on the bench's fused routes and K4's on its engine route.
 """
 
 from __future__ import annotations
@@ -268,7 +277,7 @@ from dpgo_ros_tpu_torch.parallel.rbcd import (
     state_to_numpy,
 )
 from dpgo_ros_tpu_torch.parallel.multihost import free_port
-from dpgo_ros_tpu_torch.scripts import dcp_check, measure_peaks, roofline
+from dpgo_ros_tpu_torch.scripts import common, dcp_check, measure_peaks, roofline
 from dpgo_ros_tpu_torch.utils import checkpoint as ckpt, hostmath
 from dpgo_ros_tpu_torch.utils.work import (
     FP32_FLOPS_PER_S,
@@ -819,11 +828,8 @@ def _zero_counts() -> None:
     hbm_rtr.LAUNCHES = peak_chains.LAUNCHES = peak_chains.CML_LAUNCHES = 0
 
 
-def _counts():
-    """{"k1": .., ..., "k6": ..}: every kernel's launches since the zeroing."""
-    return {"k1": fused_rtr.LAUNCHES, "k2": fused_rtr.RUN_LAUNCHES,
-            "k3": fused_asapp.TICK_LAUNCHES, "k4": hbm_rtr.LAUNCHES,
-            "k5": peak_chains.LAUNCHES, "k6": peak_chains.CML_LAUNCHES}
+# {"k1": .., ..., "k6": ..}: every kernel's launches since the zeroing
+_counts = common.counts
 
 
 def _counted_run(argv):
@@ -3016,6 +3022,47 @@ def phase_checkpoint_dcp(tmp: str, card: str) -> dict:
     return out
 
 
+BENCH_ARGS = ["--k_chain", "4", "--regions", "1"]
+
+
+def phase_bench(tmp: str, roof_row: dict) -> dict:
+    """The port's headline harness (``scripts/bench.py``) on the dpgo_demo
+    world, short (BENCH_ARGS: one region of 4 chained solves), with the
+    counters zeroed just before and read just after; its floor from this
+    run's roofline phase (the sphere2500 row, handed over as the JSON that
+    ``roofline.py --out`` writes). Gates (bench.py raises on the first two):
+    every solve ran 100 updates; the final costs lie within bench.py's band;
+    the fused routes (Parallel, RoundRobin) launched K2 once per solve and
+    nothing else, the engine route K4 once per update (100 per solve) and
+    nothing else; every route's per-solve wall ≥ 0.9 × its tCG per solve ×
+    the roofline's least valid per-tCG slope. Prints the bench's JSON line;
+    returns it."""
+    from dpgo_ros_tpu_torch.scripts import bench
+
+    path = os.path.join(tmp, "roofline.json")
+    with open(path, "w") as f:
+        json.dump({"rows": {"sphere2500": roof_row}}, f)
+    _zero_counts()
+    res = bench.main(BENCH_ARGS + ["--roofline", path, "--device", DEV.type])
+    counts = _counts()
+    total = {k: 0 for k in counts}
+    for label, r in res["routes"].items():
+        want = ({"k2": r["solves"]} if r["runner"] == "fused"
+                else {"k4": bench.NUM_ITERS * r["solves"]})
+        got = {k: v for k, v in r["launches"].items() if v}
+        print(f"bench {label}: {r['updates_per_sec']:.1f} updates/s, {r['per_solve_s'] * 1e3:.3f}"
+              f" ms per solve, tCG per solve {r['tcg_per_solve']} [{r['tcg_per_solve_min']}, "
+              f"{r['tcg_per_solve_max']}], {r['host_reads_per_solve']} host reads per solve; "
+              f"floor {r['device_floor_s']} s ({r['device_floor_from']}); launches {got} for "
+              f"{r['solves']} solves", flush=True)
+        assert got == want, (label, got, want)
+        assert r["device_floor_s"] is not None and r["device_floor_ok"], (label, r)
+        for k, v in r["launches"].items():
+            total[k] += v
+    assert counts == total, (counts, total)
+    return res
+
+
 def _phase(name, fn, *args):
     t = time.time()
     out = fn(*args)
@@ -3073,7 +3120,7 @@ def main() -> int:
     *k4, k4_call, k1_window_ms, k1_window_call = _phase("K4 timing", phase_timing_window)
     gate = _phase("K4 vs K1 below the large world", phase_gate_sweep)
     chain_err = _phase("K5/K6 vs plain", phase_compare_chains)
-    roof_counts, *cals, _ = _phase("roofline", phase_roofline)
+    roof_counts, *cals, roof_row = _phase("roofline", phase_roofline)
     chains = _phase("K5/K6 timing", phase_timing_chains)
     # its traces of ~80k launches each are the largest of the run
     fleet_timing = _phase("fleet timing", phase_fleet_timing)
@@ -3089,6 +3136,10 @@ def main() -> int:
     # after every traced phase (PERF.md §7)
     with tempfile.TemporaryDirectory() as tmp:
         _phase("checkpoint dcp", phase_checkpoint_dcp, tmp, card)
+    # after every traced phase, as the checkpoint phase (PERF.md §7)
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_res = _phase("bench", phase_bench, tmp, roof_row)
+    bench_launches = {k: r["launches"] for k, r in bench_res["routes"].items()}
     print(json.dumps({"certificate": cert}))
     print(card)
     print(json.dumps({"kernels": [
@@ -3121,6 +3172,7 @@ def main() -> int:
                 rgd_robot_bound_ms=k2_rgd[2][0], rgd_robot_bound_by=k2_rgd[2][1],
                 rgd_robot_call_ms=k2_rgd[3], rgd_max_abs_err=rgd_err,
                 rgd_launch_shapes=rgd_shapes,
+                bench_launches={k: v["k2"] for k, v in bench_launches.items() if v["k2"]},
                 launch_shapes=run_shapes,
                 ptxas=ptxas[fused_rtr.RUN_SOURCE.stem]),
         _kernel("asapp_tick_fused", "dpgo_ros_tpu_torch/csrc/asapp_tick.cu",
@@ -3136,6 +3188,7 @@ def main() -> int:
                 fleet_window_max_abs_err=fleet_err, fleets=fleets,
                 fleet_timing=fleet_timing,
                 k1_window_call_ms=k1_window_call, observability=obs,
+                bench_launches={k: v["k4"] for k, v in bench_launches.items() if v["k4"]},
                 k4_k1_ms_by_world={w: list(t) for w, t in gate.items()}),
         *(_kernel(name, "dpgo_ros_tpu_torch/csrc/peak_chains.cu", replaces,
                   roof_counts[k], chain_err[name], *chains[name][:3],

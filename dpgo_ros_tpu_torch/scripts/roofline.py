@@ -51,6 +51,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -106,6 +107,11 @@ STAND_INS = {
     "tunnels": dict(kind="sphere", n=2500, num_robots=8, seed=42, outlier_ratio=0.1),
     # the port's large world (chip_smoke.py, profile_main_path.py)
     "sphere50k": dict(kind="sphere", n=50000, num_robots=16, seed=42),
+    # the JAX package's two small grids (io/datasets.py: 9 poses / 11 edges,
+    # 125 / 297; these have 10 and 244 edges), for the measurement scripts
+    # of this directory only: they are no roofline problem
+    "tinyGrid3D": dict(kind="grid3d", grid_shape=(3, 3, 1), num_robots=1, seed=42),
+    "smallGrid3D": dict(kind="grid3d", grid_shape=(5, 5, 5), num_robots=2, seed=42),
 }
 ROOFLINE_JSON = Path(__file__).resolve().parents[2] / "ROOFLINE.json"
 
@@ -129,16 +135,27 @@ def forced_params(K: int) -> RTRParams:
     )
 
 
+def load_world(name: str, num_robots: Optional[int] = None):
+    """(data, ground truth (n, 3, 4), planted outlier mask, stand-in
+    generator arguments) of a world of :data:`STAND_INS` split among
+    ``num_robots`` robots (default its entry's): its file through
+    ``io.datasets`` when it exists (then the last three are None), else its
+    stand-in, whose arguments then carry ``num_robots``."""
+    robots = num_robots or STAND_INS[name]["num_robots"]
+    if name == "tunnels":
+        if all(os.path.exists(p) for p in datasets.tunnels_paths(num_robots=robots)):
+            return datasets.load_tunnels(num_robots=robots), None, None, None
+    elif name in datasets.G2O_DATASETS and os.path.exists(datasets.dataset_path(name)):
+        return datasets.load_g2o_dataset(name, num_robots=robots), None, None, None
+    args = dict(STAND_INS[name], num_robots=robots)
+    return (*generate_world(**args), args)
+
+
 def load_data(name: str):
     """(data, stand-in generator arguments or None) of a problem: its file
     through ``io.datasets`` when it exists, else its stand-in."""
-    robots = PROBLEMS[name][0]
-    if name == "tunnels":
-        if all(os.path.exists(p) for p in datasets.tunnels_paths(num_robots=robots)):
-            return datasets.load_tunnels(num_robots=robots), None
-    elif name in datasets.G2O_DATASETS and os.path.exists(datasets.dataset_path(name)):
-        return datasets.load_g2o_dataset(name, num_robots=robots), None
-    return generate_world(**STAND_INS[name])[0], STAND_INS[name]
+    data, _, _, stand_in = load_world(name, PROBLEMS[name][0])
+    return data, stand_in
 
 
 def init_state(prob: LiftedProblem, presteps: int = 0):
