@@ -201,7 +201,25 @@ Phases (any failure exits nonzero; nothing is caught):
      on the fused routes (Parallel, RoundRobin), K4 once per update on the
      engine route, nothing else, and each route's per-solve wall at least
      0.9 × its tCG per solve × phase 15's least per-tCG slope; the bench's
-     JSON line (block updates/s, tCG per solve, host reads per solve).
+     JSON line (block updates/s, tCG per solve, host reads per solve);
+ 36. (after 35) the roofline's first traces in 6 fresh processes
+     (``scripts/first_trace.py``): 3 whose first padded session traces one
+     reference-budget K4 solve, 3 whose first one is empty, each with a
+     second trace; every trace holds every K4 launch;
+ 37. (after 36) the ten remaining entry points of ``scripts/``
+     (``exp_tunnels_schedule`` baseline and final on the tunnels stand-in,
+     ``record_ate_r03`` on its output, ``scaling_bench``,
+     ``record_scaling`` (1 and 2 gloo processes), ``record_scaling_r03``,
+     ``record_scaling_r05``, ``exp_spmd``, ``exp_e2e``'s four presets,
+     ``micro_bench``, ``proto_chain_precond`` on smallGrid3D) in this
+     process, the counters zeroed before each: one JSON line naming the
+     card; K4 once per engine update (+ restart) of the sweep's runs and
+     refits, of ``record_ate_r03`` and of ``exp_e2e``'s RoundRobin rows, K1
+     once per Parallel update and per active slot-step of the mesh rows,
+     36 K1 launches in ``micro_bench``, none in the prototype; the
+     dpgo_demo solves at the JAX CLI's updates and costs, GNC recall ≥
+     JAX's − 0.02, the multi-process meshes bit-identical; all ten in at
+     most 90 s.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
@@ -230,12 +248,17 @@ main path and K2's on each stretch path, with the slot-window times
 engine and fused RGD paths, with the one-step RGD launch's times on a
 robot window (``rgd_robot_ms`` and the plain, bound and call times beside
 it); K4's ``observability`` holds phase 32's readings; ``bench_launches``
-are K2's on the bench's fused routes and K4's on its engine route.
+are K2's on the bench's fused routes and K4's on its engine route;
+``entry_point_launches`` are K1's and K4's in each of phase 37's scripts,
+and K4's ``first_trace`` holds phase 36's counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
+import io
 import json
 import math
 import os
@@ -278,7 +301,7 @@ from dpgo_ros_tpu_torch.parallel.rbcd import (
 )
 from dpgo_ros_tpu_torch.parallel.multihost import free_port
 from dpgo_ros_tpu_torch.scripts import common, dcp_check, measure_peaks, roofline
-from dpgo_ros_tpu_torch.utils import checkpoint as ckpt, hostmath
+from dpgo_ros_tpu_torch.utils import checkpoint as ckpt, hostmath, profiling
 from dpgo_ros_tpu_torch.utils.work import (
     FP32_FLOPS_PER_S,
     block_work,
@@ -2901,9 +2924,6 @@ def phase_observability(tmp: str, engine_summary) -> dict:
     line per update. Then ``--csv`` on per-robot CSVs of the world written
     here: K4 per update, the final cost within rel TOL_CSV_COST of the
     generated world's run. Returns the readings."""
-    import contextlib
-    import io
-
     argv = DPGO_DEMO + ["--update_rule", "RoundRobin"]
     viz, prof_a, prof_b = (os.path.join(tmp, d) for d in ("viz", "prof_a", "prof_b"))
     err = io.StringIO()
@@ -3063,6 +3083,178 @@ def phase_bench(tmp: str, roof_row: dict) -> dict:
     return res
 
 
+# fresh processes per arm of phase_roofline_first_trace
+FIRST_TRACE_PROCS = 3
+
+
+def phase_roofline_first_trace() -> dict:
+    """The roofline's first traces in fresh processes
+    (``scripts/first_trace.py``): FIRST_TRACE_PROCS processes whose first
+    session is a padded trace of one reference-budget K4 solve on
+    sphere2500's robot 0 window, and as many whose first session is empty,
+    each with a second trace (a chain of two forced K = 1 solves), through
+    ``utils.profiling.padded_profile`` (its warm-up before the first
+    session). Gate: every trace holds every K4 launch of its call. Returns
+    the per-arm counts."""
+    from dpgo_ros_tpu_torch.scripts import first_trace
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = first_trace.main(["--procs", str(FIRST_TRACE_PROCS), "--arms",
+                                "first,after_empty", "--traces", "2",
+                                "--jobs", str(2 * FIRST_TRACE_PROCS)])
+    arms = {a["arm"]: {k: a[k] for k in ("processes", "first_lost", "later_lost",
+                                         "traces_lost", "traces")} for a in out["arms"]}
+    print(f"roofline first trace: {arms} ({out['seconds']:.1f} s)", flush=True)
+    assert sum(a["processes"] for a in arms.values()) >= 5, arms
+    assert all(a["traces_lost"] == 0 and a["traces"] == 2 * a["processes"]
+               for a in arms.values()), arms
+    return arms
+
+
+# the ten entry points of phase_entry_points: (script, arguments); the
+# smallGrid3D stand-in where the JAX script's world is smallGrid3D, the
+# sweep's baseline and final configurations only
+ENTRY_POINTS = (
+    ("exp_tunnels_schedule", ["baseline", "final"]),
+    ("record_ate_r03", []),  # --schedule: the sweep's output
+    ("scaling_bench", []),
+    ("record_scaling", []),
+    ("record_scaling_r03", []),
+    ("record_scaling_r05", []),
+    ("exp_spmd", []),
+    ("exp_e2e", ["tiny", "small", "sphere", "sphere_accel"]),
+    ("micro_bench", []),
+    ("proto_chain_precond", ["--world", "smallGrid3D"]),
+)
+ENTRY_POINTS_S = 90.0
+MICRO_K1_CALLS = 12  # per RTR budget: one read of its tCG, one warm, 10 timed
+
+
+def _entry_point(name: str, argv) -> tuple:
+    """``scripts/<name>.main(argv)`` on the card in this process with
+    every counter zeroed just before and read just after: (its JSON
+    object, the launches, seconds). Asserts one JSON line on stdout, equal
+    to the object, that names this card and its power limit."""
+    mod = importlib.import_module(f"dpgo_ros_tpu_torch.scripts.{name}")
+    buf = io.StringIO()
+    _zero_counts()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv + ["--device", DEV.type])
+    dt = time.time() - t
+    counts = _counts()
+    lines = buf.getvalue().strip().splitlines()
+    assert len(lines) == 1 and json.loads(lines[0]) == json.loads(json.dumps(out)), (
+        name, lines[:2])
+    assert f"{out['card']['name']}, {out['card']['power_limit']}" == \
+        measure_peaks.card_line(), (name, out["card"])
+    return out, counts, dt
+
+
+def _slot_rows(rows) -> int:
+    """K1 launches of scaling_bench rows, each equal to its timed steps'
+    active slot-steps; returns their sum with the warm steps'."""
+    for r in rows:
+        assert r["launches"]["k1"] == r["active_slot_steps"] > 0, r
+    return sum(r["active_slot_steps"] + r.get("warm_slot_steps", 0) for r in rows)
+
+
+def phase_entry_points(tmp: str) -> dict:
+    """The ten remaining entry points of ``dpgo_ros_tpu_torch/scripts/`` in
+    this process on the card (ENTRY_POINTS), each with the counters zeroed
+    just before. Gates: one JSON line naming the card; K4 launches equal to
+    the engine's updates in ``exp_tunnels_schedule`` (every run and refit),
+    ``record_ate_r03`` and ``exp_e2e``'s RoundRobin presets (+ restarts),
+    K1 launches to its Parallel updates and to the active slot-steps in
+    ``scaling_bench``, ``record_scaling``'s slot rows and anchors and
+    ``exp_spmd``, K1 36 in ``micro_bench``, no kernel in
+    ``proto_chain_precond``; the dpgo_demo solves (``record_ate_r03``'s
+    distributed solve, ``exp_e2e``'s sphere presets) at the JAX CLI's
+    updates and costs, the GNC recall ≥ JAX's − 0.02; the multi-process
+    meshes bit-identical; the ten in at most ENTRY_POINTS_S seconds.
+    Returns {"k1": {script: launches}, "k4": {...}, "seconds": {...}}."""
+    sweep_path = os.path.join(tmp, "sweep.json")
+    res, counts, secs = {}, {}, {}
+    for name, argv in ENTRY_POINTS:
+        if name == "exp_tunnels_schedule":
+            argv = argv + ["--out", sweep_path]
+        if name == "record_ate_r03":
+            argv = argv + ["--schedule", sweep_path]
+        res[name], counts[name], secs[name] = _entry_point(name, argv)
+        print(f"entry {name}: {secs[name]:.1f} s, launches "
+              f"{ {k: v for k, v in counts[name].items() if v} }", flush=True)
+    k1, k4 = {}, {}
+    # the sweep: one K4 launch per update of every run and refit
+    sweep = res["exp_tunnels_schedule"]["configs"]
+    total = 0
+    for cname, entry in sweep.items():
+        for run in entry["runs"].values():
+            for r in (run, run.get("refit")):
+                if r is not None:
+                    assert r["launches"]["k4"] == r["iters"] > 0, (cname, r)
+                    total += r["iters"]
+            og = run["outliers"]
+            assert og["rejected_true"] / og["planted"] >= JAX_GNC_RECALL - 0.02, og
+        print(f"entry exp_tunnels_schedule {cname}: agreement {entry['agreement']:.4f}, "
+              f"{entry['num_flipped']} flips, ATE over span {entry['ate_over_span']:.5f}"
+              + (f", refit ATE {entry['common_set_refit_ate']:.4f}"
+                 if "common_set_refit_ate" in entry else ""), flush=True)
+    _only(counts["exp_tunnels_schedule"], k4=total)
+    k4["exp_tunnels_schedule"] = total
+    # ATE r03: the dpgo_demo solve and the centralized one, K4 per update
+    ate = res["record_ate_r03"]["sphere2500_5robot_vs_centralized"]
+    assert ate["distributed_iters"] == DEMO_UPDATES, ate
+    assert abs(ate["distributed_cost"] - ONE_BLOCK_DEMO_COST) <= (
+        TOL_MODES_COST * ONE_BLOCK_DEMO_COST), ate["distributed_cost"]
+    assert ate["distributed_launches"]["k4"] == ate["distributed_iters"]
+    assert ate["centralized_launches"]["k4"] == ate["centralized_iters"]
+    k4["record_ate_r03"] = ate["distributed_iters"] + ate["centralized_iters"]
+    _only(counts["record_ate_r03"], k4=k4["record_ate_r03"])
+    tun = res["record_ate_r03"]["tunnels_8robot_gnc_schedule_independence"]
+    assert tun["accept_reject_agreement"] == sweep["final"]["agreement"]
+    # the mesh rows: K1 once per active slot-step
+    k1["scaling_bench"] = _slot_rows(res["scaling_bench"]["rows"])
+    _only(counts["scaling_bench"], k1=k1["scaling_bench"])
+    rs = res["record_scaling"]
+    k1["record_scaling"] = _slot_rows(rs["slots"] + [rs["single_card"]])
+    _only(counts["record_scaling"], k1=k1["record_scaling"])
+    assert rs["multi_process"]["bit_identical_across_layouts"], rs["multi_process"]
+    for name in ("record_scaling_r03", "record_scaling_r05"):
+        k1[name] = _slot_rows([res[name]["anchor"]])
+        _only(counts[name], k1=k1[name])
+    sp = res["exp_spmd"]
+    assert sp["launches"]["k1"] == sp["active_slot_steps"] > 0, sp
+    k1["exp_spmd"] = sp["active_slot_steps"]
+    _only(counts["exp_spmd"], k1=k1["exp_spmd"])
+    # exp_e2e: K4 per RoundRobin update, K1 per Parallel one (+ restarts)
+    want = {"k1": 0, "k4": 0}
+    for preset, rows in res["exp_e2e"]["presets"].items():
+        for r in rows:
+            kernel = "k1" if r["rule"] == "Parallel" else "k4"
+            assert r["launches"][kernel] == r["iterations"] + r["restarts"] > 0, r
+            want[kernel] += r["iterations"] + r["restarts"]
+            if preset == "sphere":
+                assert r["iterations"] == DEMO_UPDATES, r
+                assert abs(r["final_cost"] - ONE_BLOCK_DEMO_COST) <= (
+                    TOL_MODES_COST * ONE_BLOCK_DEMO_COST), r
+            if preset == "sphere_accel":
+                its, cost = JAX_ACCEL_DEMO["engine"]
+                assert abs(r["iterations"] - its) <= ACCEL_UPDATES_SLACK, r
+                assert abs(r["final_cost"] - cost) <= TOL_ACCEL_COST * cost, r
+    _only(counts["exp_e2e"], **want)
+    k1["exp_e2e"], k4["exp_e2e"] = want["k1"], want["k4"]
+    # micro_bench: K1 on robot 0's mask at the three budgets; the prototype
+    # has no kernel on its path
+    k1["micro_bench"] = MICRO_K1_CALLS * len(res["micro_bench"]["rtr"])
+    _only(counts["micro_bench"], k1=k1["micro_bench"])
+    _only(counts["proto_chain_precond"])
+    assert all(r["graph"] for r in res["micro_bench"]["looped_ms_per_op"].values())
+    total_s = sum(secs.values())
+    print(f"entry points: {total_s:.1f} s in all; K1 {k1}; K4 {k4}", flush=True)
+    assert total_s <= ENTRY_POINTS_S, secs
+    return {"k1": k1, "k4": k4, "seconds": secs}
+
+
 def _phase(name, fn, *args):
     t = time.time()
     out = fn(*args)
@@ -3124,22 +3316,21 @@ def main() -> int:
     chains = _phase("K5/K6 timing", phase_timing_chains)
     # its traces of ~80k launches each are the largest of the run
     fleet_timing = _phase("fleet timing", phase_fleet_timing)
-    # the RGD and observability phases after every other: where the
-    # profiler first ran before the roofline phase, the roofline's short
-    # padded traces lost every device event (PERF.md §7)
     rgd_err, rgd_shapes = _phase("K2 RGD vs plain on engine windows", phase_compare_rgd)
     engine_rgd = _phase("engine RGD main path", phase_engine_rgd)
     fused_rgd = _phase("fused RGD main path", phase_fused_rgd, engine_rgd)
     with tempfile.TemporaryDirectory() as tmp:
         obs = _phase("observability", phase_observability, tmp, engine_summary)
     k2_rgd = _phase("K2 RGD timing", phase_timing_rgd)
-    # after every traced phase (PERF.md §7)
     with tempfile.TemporaryDirectory() as tmp:
         _phase("checkpoint dcp", phase_checkpoint_dcp, tmp, card)
-    # after every traced phase, as the checkpoint phase (PERF.md §7)
     with tempfile.TemporaryDirectory() as tmp:
         bench_res = _phase("bench", phase_bench, tmp, roof_row)
     bench_launches = {k: r["launches"] for k, r in bench_res["routes"].items()}
+    first_trace = _phase("roofline first trace", phase_roofline_first_trace)
+    with tempfile.TemporaryDirectory() as tmp:
+        entry = _phase("entry points", phase_entry_points, tmp)
+    print(f"longest padded trace session: {profiling.longest_session_s:.2f} s", flush=True)
     print(json.dumps({"certificate": cert}))
     print(card)
     print(json.dumps({"kernels": [
@@ -3156,7 +3347,7 @@ def main() -> int:
                 spmd_slot_call_ms=spmd_timing["k1_call_ms"],
                 spmd_slot_shape=spmd_timing["shape"], spmd=spmd_main, spmd_gnc=spmd_gnc,
                 spmd_two_processes=spmd_multi, spmd_profile=spmd_timing["profile"],
-                spmd_slot_checks=spmd_err,
+                spmd_slot_checks=spmd_err, entry_point_launches=entry["k1"],
                 launch_shapes=k1_shapes, ptxas=ptxas[fused_rtr.SOURCE.stem]),
         _kernel("rtr_run_fused", "dpgo_ros_tpu_torch/csrc/rtr_run.cu",
                 "dpgo_ros_tpu/ops/fused_rtr.py:1458", run_launches, run_err, *k2,
@@ -3189,6 +3380,7 @@ def main() -> int:
                 fleet_timing=fleet_timing,
                 k1_window_call_ms=k1_window_call, observability=obs,
                 bench_launches={k: v["k4"] for k, v in bench_launches.items() if v["k4"]},
+                entry_point_launches=entry["k4"], first_trace=first_trace,
                 k4_k1_ms_by_world={w: list(t) for w, t in gate.items()}),
         *(_kernel(name, "dpgo_ros_tpu_torch/csrc/peak_chains.cu", replaces,
                   roof_counts[k], chain_err[name], *chains[name][:3],

@@ -106,19 +106,15 @@ def measure(world: str, num_robots: int, num_devices: int, S: int, rgd,
     }
 
 
-def strides(text: str):
-    return tuple(int(v) for v in text.split(","))
-
-
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--world", default="sphere2500", choices=sorted(roofline.STAND_INS),
                    help="the M = 1 mesh's world (5 robots grouped into one slot)")
     p.add_argument("--grid_world", default="smallGrid3D",
                    choices=sorted(roofline.STAND_INS), help="the M = 8 mesh's world")
-    p.add_argument("--m1_strides", type=strides, default=M1_STRIDES)
+    p.add_argument("--m1_strides", type=common.ints, default=M1_STRIDES)
     p.add_argument("--m1_iters", type=int, default=M1_ITERS)
-    p.add_argument("--m8_strides", type=strides, default=M8_STRIDES)
+    p.add_argument("--m8_strides", type=common.ints, default=M8_STRIDES)
     p.add_argument("--m8_iters", type=int, default=M8_ITERS)
     common.add_args(p)
     a = common.parse(p, argv, "bench_spmd_stretch")

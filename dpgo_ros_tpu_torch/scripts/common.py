@@ -39,6 +39,11 @@ def add_args(p: argparse.ArgumentParser, dtype: str = "float32") -> None:
     p.add_argument("--out", help="also write the JSON line here (never a root record)")
 
 
+def ints(text: str) -> tuple:
+    """A comma-separated list of integers (an argument type)."""
+    return tuple(int(v) for v in text.split(","))
+
+
 def is_root_record(path: str) -> bool:
     """Whether ``path`` resolves to a JSON record at the repository's root."""
     r = Path(path).resolve()

@@ -48,7 +48,6 @@ import json
 import math
 import os
 import sys
-import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -67,7 +66,7 @@ from dpgo_ros_tpu_torch.scripts import measure_peaks
 from dpgo_ros_tpu_torch.utils.config import AgentConfig, RobustCostType, UpdateRule
 # the padded trace lives in utils/profiling.py; scripts/trace_pad.py and
 # chip_smoke.py reach it through this module
-from dpgo_ros_tpu_torch.utils.profiling import padded_profile
+from dpgo_ros_tpu_torch.utils.profiling import chrome_events, padded_profile
 from dpgo_ros_tpu_torch.utils.work import (
     FP32_FLOPS_PER_S,
     HBM_BYTES_PER_S,
@@ -135,19 +134,24 @@ def forced_params(K: int) -> RTRParams:
     )
 
 
-def load_world(name: str, num_robots: Optional[int] = None):
+def load_world(name: str, num_robots: Optional[int] = None, balance: str = "poses"):
     """(data, ground truth (n, 3, 4), planted outlier mask, stand-in
     generator arguments) of a world of :data:`STAND_INS` split among
     ``num_robots`` robots (default its entry's): its file through
     ``io.datasets`` when it exists (then the last three are None), else its
-    stand-in, whose arguments then carry ``num_robots``."""
+    stand-in, whose arguments then carry ``num_robots``. ``balance``
+    "work" cuts the contiguous blocks by work (``io/partition.py``) rather
+    than by pose count; the tunnels file's per-robot split is its own."""
     robots = num_robots or STAND_INS[name]["num_robots"]
     if name == "tunnels":
         if all(os.path.exists(p) for p in datasets.tunnels_paths(num_robots=robots)):
             return datasets.load_tunnels(num_robots=robots), None, None, None
     elif name in datasets.G2O_DATASETS and os.path.exists(datasets.dataset_path(name)):
-        return datasets.load_g2o_dataset(name, num_robots=robots), None, None, None
+        return (datasets.load_g2o_dataset(name, num_robots=robots, balance=balance),
+                None, None, None)
     args = dict(STAND_INS[name], num_robots=robots)
+    if balance != "poses":
+        args["balance"] = balance
     return (*generate_world(**args), args)
 
 
@@ -248,12 +252,7 @@ def _device_ms(fn) -> float:
     before = launches()
     with padded_profile() as prof:
         fn()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
-    return session_busy_ms(events, launches() - before)
+    return session_busy_ms(chrome_events(prof), launches() - before)
 
 
 def solve_time(solve, X0, params: RTRParams, reps=REPS, n_est=N_EST):

@@ -90,3 +90,76 @@ def test_profile_dir_writes_a_trace(tmp_path, monkeypatch, mode):
     drop = {"wall_time_sec"}
     assert {k: v for k, v in traced.items() if k not in drop} == {
         k: v for k, v in base.items() if k not in drop}
+
+
+# ---- the padded session's warm-up and its long-session guard (the
+# roofline's lost first trace; PERF.md §7). CUDA is stubbed: these run
+# the session's bookkeeping on the CPU.
+
+
+@pytest.fixture
+def cuda_stubbed(monkeypatch):
+    """A fresh process's profiling state, CUDA's synchronize and spin
+    kernel stubbed, and the kernel build counted."""
+    from dpgo_ros_tpu_torch.ops import fused_rtr
+
+    calls = {"build": 0, "check": 0}
+    monkeypatch.setattr(profiling, "_warmed_up", False)
+    monkeypatch.setattr(profiling, "longest_session_s", 0.0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(fused_rtr, "build_all", lambda: calls.__setitem__(
+        "build", calls["build"] + 1))
+    monkeypatch.setattr(profiling, "check_warm_up", lambda events: calls.__setitem__(
+        "check", calls["check"] + 1))
+    return calls
+
+
+def test_warm_up_runs_once_per_process(cuda_stubbed):
+    with profiling.padded_profile(pad=0.0):
+        pass
+    assert cuda_stubbed == {"build": 1, "check": 1}
+    for _ in range(2):
+        with profiling.padded_profile(pad=0.0):
+            torch.ones(3).sum()
+    assert cuda_stubbed == {"build": 1, "check": 1}
+    assert 0.0 < profiling.longest_session_s < profiling.LONG_SESSION_S
+
+
+def test_a_host_only_session_neither_warms_up_nor_counts(cuda_stubbed, monkeypatch):
+    _no_cuda(monkeypatch)
+    with profiling.padded_profile([profiling.ProfilerActivity.CPU], pad=0.0):
+        pass
+    assert cuda_stubbed == {"build": 0, "check": 0} and profiling.longest_session_s == 0.0
+
+
+def test_no_cuda_session_opens_after_a_long_one(cuda_stubbed, monkeypatch):
+    monkeypatch.setattr(profiling, "longest_session_s", profiling.LONG_SESSION_S + 1.0)
+    with pytest.raises(RuntimeError, match="stayed open"):
+        with profiling.padded_profile(pad=0.0):
+            pass
+    with pytest.raises(RuntimeError, match="stayed open"):
+        roofline._device_ms(lambda: None)
+    with profiling.padded_profile([profiling.ProfilerActivity.CPU], pad=0.0):
+        pass  # a host-only trace loses no device interval
+
+
+def test_warm_up_check_needs_its_known_launch():
+    spin = {"ph": "X", "cat": "kernel", "name": "at::cuda::(anonymous namespace)::spin_kernel"}
+    profiling.check_warm_up([spin])
+    for events in ([], [dict(spin, cat="cuda_runtime")],
+                   [dict(spin, name="void at::native::vectorized_elementwise_kernel")]):
+        with pytest.raises(RuntimeError, match="known launch"):
+            profiling.check_warm_up(events)
+
+
+def test_device_ms_still_raises_on_a_trace_short_of_its_launches(cuda_stubbed, monkeypatch):
+    from dpgo_ros_tpu_torch.ops import hbm_rtr
+
+    def launch_without_a_trace():  # a K4 launch whose interval the trace lost
+        hbm_rtr.LAUNCHES += 1
+
+    monkeypatch.setattr(hbm_rtr, "LAUNCHES", hbm_rtr.LAUNCHES)
+    with pytest.raises(RuntimeError, match="0 kernel intervals for 1 kernel launches"):
+        roofline._device_ms(launch_without_a_trace)
+    assert roofline._device_ms(lambda: None) == 0.0

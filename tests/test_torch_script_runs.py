@@ -31,6 +31,21 @@ RUNS = {
                             "2", "--m8_strides", "1,2", "--m8_iters", "2"],
                            "SPMD_STRETCH_r05.json"),
     "record_staircase": ([], "STAIRCASE_r04.json"),
+    "exp_tunnels_schedule": (["final", "--world", "smallGrid3D", "--outlier_ratio", "0.2"],
+                             "exp_tunnels_schedule.json"),
+    "record_ate_r03": (["--world", "tinyGrid3D", "--dtype", "float64"], "ATE_r03.json"),
+    "scaling_bench": (["--world", "smallGrid3D", "--slots", "1,2", "--iters", "2"],
+                      "BASELINE.json"),
+    "record_scaling": (["--world", "tinyGrid3D", "--slots", "1,2", "--iters", "2",
+                        "--mh_steps", "2", "--mh_n", "64"], "SCALING_r02.json"),
+    "record_scaling_r03": (["--benches", "tinyGrid3D,smallGrid3D", "--anchor_world",
+                            "tinyGrid3D", "--anchor_iters", "2"], "SCALING_r03.json"),
+    "record_scaling_r05": (["--benches", "tinyGrid3D,smallGrid3D", "--anchor_world",
+                            "tinyGrid3D", "--anchor_iters", "2"], "SCALING_r05.json"),
+    "exp_spmd": (["--steps", "3"], "BASELINE.json"),
+    "exp_e2e": (["tiny"], "BASELINE.json"),
+    "micro_bench": (["--world", "smallGrid3D", "--iters", "2"], "BASELINE.json"),
+    "proto_chain_precond": (["--world", "smallGrid3D"], "BASELINE.json"),
 }
 
 
@@ -71,6 +86,19 @@ def test_script_runs_on_the_cpu(name, capsys):
     if name == "bench_scale_hbm":
         row = out["rows"][0]
         assert row["k4_tcg_per_solve"] > 0 and row["k1_tcg_per_solve"] > 0
+    if name == "exp_tunnels_schedule":
+        fin = out["configs"]["final"]
+        assert fin["runs"]["UNIFORM"]["outliers"]["planted"] > 0
+        assert "common_set_refit_ate" in fin
+    if name == "record_scaling":
+        assert out["multi_process"]["bit_identical_across_layouts"]
+        assert [r["processes"] for r in out["multi_process"]["rows"]] == [1, 2]
+    if name in ("scaling_bench", "exp_spmd"):
+        rows = out["rows"] if name == "scaling_bench" else [out]
+        assert all(r["active_slot_steps"] > 0 for r in rows)
+    if name in ("record_scaling_r03", "record_scaling_r05"):
+        assert out["anchor"]["step_s"] > 0 and len(out["benchmarks"]) == 2
+        assert {ln["link"] for ln in out["links"]} == {"nvlink4_450GBps", "pcie5_x16_64GBps"}
 
 
 @pytest.mark.parametrize("name", list(RUNS))
