@@ -1,0 +1,9 @@
+"""Mean ms per request in the traced run's 'finalize' span (host clock,
+synchronized at the span's boundaries)."""
+
+import numpy as np
+
+
+def read(run):
+    v = [r["spans"]["finalize"] for r in run.requests if "finalize" in r["spans"]]
+    return float(np.mean(v)) * 1e3 if v else None
