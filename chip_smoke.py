@@ -490,7 +490,7 @@ def phase_compare() -> float:
     that is not its row's block. Returns (max abs X error, {case: launch
     shape})."""
     worst, launches, shapes = 0.0, 0, {}
-    before = fused_rtr.LAUNCHES
+    before = _launches("k1")
     for name, prob, X, mask, Pinv, offs, w, row in solve_cases():
         kw = dict(windows=w, row=row)
         Xk, sk = fused_rtr.rtr_solve_fused(X, mask, Pinv, prob.edges, DEMO_PARAMS, offs, **kw)
@@ -534,8 +534,8 @@ def phase_compare() -> float:
             print(f"compare: refused as it must be ({e})", flush=True)
         else:
             raise AssertionError(f"K1's wrapper took {list(bad)}")
-    assert fused_rtr.LAUNCHES == before + launches
-    fused_rtr.LAUNCHES = before  # comparison launches
+    assert _launches("k1") == before + launches
+    _set_launches(k1=before)  # comparison launches
     return worst, shapes
 
 
@@ -784,7 +784,7 @@ def _time_k1(kind: str):
     per wrapper call)."""
     cases = [c for c in solve_cases(large=False)
              if c[0].startswith(f"sphere2500/{kind}")]
-    launches_before = fused_rtr.LAUNCHES
+    launches_before = _launches("k1")
 
     def run_all(fn, windowed):
         def go():
@@ -800,7 +800,7 @@ def _time_k1(kind: str):
     stats = [fused_rtr.rtr_solve_fused(X, m, P, pr.edges, DEMO_PARAMS, o, windows=w,
                                        row=row)[1]
              for _, pr, X, m, P, o, w, row in cases]
-    fused_rtr.LAUNCHES = launches_before  # timing launches are not main path
+    _set_launches(k1=launches_before)  # timing launches are not main path
     tcg = [int(st[5]) for st in stats]
     prob = cases[0][1]
     blocks = [m.reshape(-1).cpu().numpy() > 0 for _, _, _, m, *_ in cases]
@@ -846,9 +846,19 @@ TOL_MODES_COST, MIN_MODE_AGREEMENT = 1e-4, 0.99
 DEMO_UPDATES, ONE_BLOCK_DEMO_COST = 66, 12448.797
 
 
+def _launches(kernel: str) -> int:
+    """``kernel``'s ("k1" … "k6") launches so far (the registry's counter)."""
+    return profiling.launches()[kernel]
+
+
+def _set_launches(**values: int) -> None:
+    """Sets kernels' launch counters, e.g. back to a reading taken before
+    launches that are not the path being counted."""
+    profiling.set_counters({f"{k}.launches": v for k, v in values.items()})
+
+
 def _zero_counts() -> None:
-    fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = fused_asapp.TICK_LAUNCHES = 0
-    hbm_rtr.LAUNCHES = peak_chains.LAUNCHES = peak_chains.CML_LAUNCHES = 0
+    _set_launches(**{k: 0 for k in profiling.KERNELS})
 
 
 # {"k1": .., ..., "k6": ..}: every kernel's launches since the zeroing
@@ -924,14 +934,14 @@ def phase_timing_run():
     case = next(c for c in run_cases() if c[0] == "sphere2500/r5/roundrobin")
     _, prob, X, bank, sched, Pinv, adj, offs, w, run = case
     steps = run["it_cap"]
-    launches_before = fused_rtr.RUN_LAUNCHES
+    launches_before = _launches("k2")
     go = lambda fn: (lambda: _run_pair(prob, X, bank, sched, Pinv, adj, offs, w, run, fn))
     k_ms = _time(go(fused_rtr.rtr_run_fused), 3) / steps
     p_ms = _time(go(fused_rtr.rtr_run_fused_ref), 1) / steps
     k2_ms = _time(go(fused_rtr.rtr_run_fused), 3) / steps
     dev_ms = _kernel_ms(go(fused_rtr.rtr_run_fused), "rtr_run_kernel") / steps
     tcg = int(go(fused_rtr.rtr_run_fused)()[2][3])
-    fused_rtr.RUN_LAUNCHES = launches_before  # timing launches are not main path
+    _set_launches(k2=launches_before)  # timing launches are not main path
     n, r, d, R = prob.n, prob.r, prob.d, prob.num_robots
     C = r * (d + 1)
     masks = bank.cpu().numpy() > 0
@@ -1050,7 +1060,7 @@ def phase_compare_tick():
     movement history within rel TOL_TICK_MOVED, the second chain
     bit-identical; the wrapper raises without windows."""
     worst, shapes, launches = 0.0, {}, 0
-    launches_before = fused_asapp.TICK_LAUNCHES
+    launches_before = _launches("k3")
     k3 = fused_asapp.asapp_tick_fused
     for name, eng, X0, hist0, table in tick_cases():
         Xk, Hk, mk = _tick_chain(k3, eng, X0, hist0, table)
@@ -1081,8 +1091,8 @@ def phase_compare_tick():
         print(f"tick: refused as it must be ({e})", flush=True)
     else:
         raise AssertionError("K3's wrapper took no windows on the card")
-    assert fused_asapp.TICK_LAUNCHES == launches_before + launches
-    fused_asapp.TICK_LAUNCHES = launches_before  # comparison launches
+    assert _launches("k3") == launches_before + launches
+    _set_launches(k3=launches_before)  # comparison launches
     return worst, shapes
 
 
@@ -1115,13 +1125,13 @@ def phase_async_fixed_ticks() -> None:
     X0 = RBCDEngine(p64, AgentConfig(dtype="float64", **base)).initialize().X
     p32 = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device=DEV)
     table = torch.randint(0, 4, (50, 5), generator=torch.Generator().manual_seed(7))
-    launches_before = fused_asapp.TICK_LAUNCHES
+    launches_before = _launches("k3")
     _, i64 = ASAPPEngine(p64, AgentConfig(dtype="float64", **base)).run(
         X0, num_ticks=50, chunk=1, delays=table)
     _, i32 = ASAPPEngine(p32, AgentConfig(dtype="float32", **base)).run(
         X0.to(device=DEV, dtype=torch.float32), num_ticks=50, chunk=1, delays=table)
-    assert fused_asapp.TICK_LAUNCHES == launches_before + 50
-    fused_asapp.TICK_LAUNCHES = launches_before  # not the main path
+    assert _launches("k3") == launches_before + 50
+    _set_launches(k3=launches_before)  # not the main path
     h64, h32 = np.array(i64["costs"]), np.array(i32["costs"])
     rel = float(np.max(np.abs(h32 - h64) / np.abs(h64)))
     print(f"fixed 50 ticks: cost {h64[0]:.7g} -> {h64[-1]:.7g} (CPU fp64), "
@@ -1145,7 +1155,7 @@ def phase_async_stop():
                                         max_delayed_iterations=3))
     X0 = noisy_state(prob, gt, seed=700)
     N, chunk = ASYNC_STOP_TICKS, ASYNC_STOP_CHUNK
-    before = fused_asapp.TICK_LAUNCHES
+    before = _launches("k3")
     _, free = eng.run(X0, num_ticks=N, chunk=N, record=True)
     M = free["rel_hist"].max(axis=1)  # every robot below tol after tick t iff M[t] < tol
     stop = None
@@ -1159,8 +1169,8 @@ def phase_async_stop():
     ref, _ = eng.run(X0, num_ticks=stop + 1, chunk=N)
     gen = torch.Generator().manual_seed(eng.config.seed)
     torch.randint(0, eng.K + 1, (stop + 1, 5), generator=gen)
-    launched = fused_asapp.TICK_LAUNCHES - before
-    fused_asapp.TICK_LAUNCHES = before  # not the main path
+    launched = _launches("k3") - before
+    _set_launches(k3=before)  # not the main path
     rows = info["rel_hist"]
     print(f"async stop: tol {tol:.6g}, stop after tick {stop} (chunk {chunk}), ran "
           f"{info['ticks']} ticks, converged {info['converged']}, rows recorded "
@@ -1191,14 +1201,14 @@ def phase_timing_tick():
     the whole tick's (ring write and glue included); returns (kernel device
     ms, plain ms, bound (ms, by), tick ms, ms per wrapper call)."""
     name, eng, X0, hist0, table = next(iter(tick_cases()))
-    launches_before = fused_asapp.TICK_LAUNCHES
+    launches_before = _launches("k3")
     k3, ref = fused_asapp.asapp_tick_fused, fused_asapp.asapp_tick_fused_ref
     k_ms = _time_calls(k3, eng, X0, hist0, table, 5)
     p_ms = _time_calls(ref, eng, X0, hist0, table, 1)
     k2_ms = _time_calls(k3, eng, X0, hist0, table, 5)
     tick_ms = _time(lambda: _tick_chain(k3, eng, X0, hist0, table), 5) / TICKS
     dev_ms = _kernel_ms(lambda: _tick_chain(k3, eng, X0, hist0, table), "asapp_tick_kernel")
-    fused_asapp.TICK_LAUNCHES = launches_before  # timing launches are not main path
+    _set_launches(k3=launches_before)  # timing launches are not main path
     prob, precond = eng.problem, eng.rgd.use_preconditioner
     nbytes = tick_bytes(prob, precond)
     flops = tick_flops(prob, eng.steps_per_tick, precond)
@@ -1296,7 +1306,7 @@ def phase_compare_window():
     bit-identical to the input, a second launch bit-identical; for the
     first robot of each case, :func:`check_window_repeat`."""
     worst, shapes, launches = 0.0, {}, 0
-    before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
+    before = _launches("k4"), _launches("k1")
     for name, prob, X, Pinv, w, robots in [*large_cases(), *rank_cases()]:
         shapes[name] = launch_shape(w, prob.d, prob.r)
         print(f"window {name}: {w.max_poses} poses and {w.max_edges} edges at most; "
@@ -1334,8 +1344,8 @@ def phase_compare_window():
             if k == robots[0]:
                 check_window_repeat(f"{name}/robot{k}", prob, Xk, k, Pinv, w)
                 launches += 1
-    assert hbm_rtr.LAUNCHES == before[0] + launches
-    hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # comparison launches
+    assert _launches("k4") == before[0] + launches
+    _set_launches(k4=before[0], k1=before[1])  # comparison launches
     return worst, shapes
 
 
@@ -1393,13 +1403,13 @@ def phase_large_sweep() -> None:
                       max_iteration_number=LARGE_ROBOTS, dtype="float32")
     eng = RBCDEngine(prob, cfg)
     st0 = eng.initialize()
-    before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
+    before = _launches("k4"), _launches("k1")
     _, i4 = eng.run(st0)
     with mock.patch.object(rbcd, "SEQUENTIAL_ON_WINDOWS", False):
         _, i1 = eng.run(st0)
-    assert hbm_rtr.LAUNCHES == before[0] + LARGE_ROBOTS
-    assert fused_rtr.LAUNCHES == before[1] + LARGE_ROBOTS
-    hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # not the main path
+    assert _launches("k4") == before[0] + LARGE_ROBOTS
+    assert _launches("k1") == before[1] + LARGE_ROBOTS
+    _set_launches(k4=before[0], k1=before[1])  # not the main path
     h4, h1 = i4["history"], i1["history"]
     crel = _rel(torch.tensor(h4["cost"]), torch.tensor(h1["cost"]))
     rrel = _rel(torch.tensor(h4["rel_change"]), torch.tensor(h1["rel_change"]))
@@ -1419,7 +1429,7 @@ def phase_timing_window():
     over the 16 blocks, same inputs; returns (K4 device ms, plain ms, bound
     (ms, by), K4 ms per wrapper call, K1 device ms, K1 ms per call)."""
     _, prob, X, Pinv, w, _ = large_cases()[0]
-    before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
+    before = _launches("k4"), _launches("k1")
     robots = range(LARGE_ROBOTS)
     masks = {k: prob.block_mask(k) for k in K4_ROBOTS}
     k4 = lambda: [hbm_rtr.rtr_solve_hbm(X, k, Pinv, prob.edges, DEMO_PARAMS, w)
@@ -1437,7 +1447,7 @@ def phase_timing_window():
     k1_dev_ms = _kernel_ms(k1, "rtr_block_kernel")
     stats = [s.double().cpu().numpy() for _, s in k4()]
     stats1 = [s.double().cpu().numpy() for _, s in k1()]
-    hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # timing launches
+    _set_launches(k4=before[0], k1=before[1])  # timing launches
     tcg = [int(s[5]) for s in stats]
     tcg1 = [int(s[5]) for s in stats1]
     rof = np.asarray(prob.robot_of_pose)
@@ -1469,7 +1479,7 @@ def phase_gate_sweep():
     """K4 and K1 ms per block solve on the same inputs and windows (noisy
     state, the same robots, up to 4 per world) for every GATE_WORLDS
     world; returns {world: (K4 ms, K1 ms)}."""
-    before = hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES
+    before = _launches("k4"), _launches("k1")
     out = {}
     for n, R in GATE_WORLDS:
         data, gt, _ = generate_world("sphere", n=n, num_robots=R, seed=1)
@@ -1496,7 +1506,7 @@ def phase_gate_sweep():
               f"{t1:.3f} ms per solve (K1/K4 {t1 / t4:.3f}); tCG "
               f"{tcg4} / {tcg1}", flush=True)
         assert tcg4 == tcg1, name
-    hbm_rtr.LAUNCHES, fused_rtr.LAUNCHES = before  # timing launches
+    _set_launches(k4=before[0], k1=before[1])  # timing launches
     return out
 
 
@@ -1521,7 +1531,7 @@ def phase_compare_chains():
     every CHAIN_STEPS trip count: bit-identical, since both take the same
     operations in the same order without FMA contraction. Returns {name:
     max abs error}."""
-    before = peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES
+    before = _launches("k5"), _launches("k6")
     out = {}
     for name, (fused, ref, inp, _) in CHAINS.items():
         x = measure_peaks.slabs(*inp)
@@ -1534,8 +1544,8 @@ def phase_compare_chains():
             assert torch.isfinite(k).all() and torch.equal(k, p), (name, n)
             out[name] = max(out[name], err)
     n = len(CHAIN_STEPS)
-    assert (peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES) == (before[0] + n, before[1] + n)
-    peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES = before  # comparison launches
+    assert (_launches("k5"), _launches("k6")) == (before[0] + n, before[1] + n)
+    _set_launches(k5=before[0], k6=before[1])  # comparison launches
     return out
 
 
@@ -1575,7 +1585,7 @@ def phase_timing_chains():
     multiplies, adds and subtracts (no FMA), one flop per instruction, so
     the least time the card can take for them is their flops over half the
     FMA peak; ``bound`` stays at the published fp32 peak."""
-    before = peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES
+    before = _launches("k5"), _launches("k6")
     n, out = CHAIN_TIMING_STEPS, {}
     for name, (fused, ref, inp, per_elem) in CHAINS.items():
         x = measure_peaks.slabs(*inp)
@@ -1593,7 +1603,7 @@ def phase_timing_chains():
               f"pass), {flops / (km * 1e-3) / 1e12:.4f} TFLOP/s; plain {p_ms:.3f} ms; "
               f"bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes} B, {flops:.4g} flop); "
               f"unfused bound {unfused_ms * 1e3:.4f} us ({100 * unfused_ms / km:.1f} %)")
-    peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES = before  # timing launches
+    _set_launches(k5=before[0], k6=before[1])  # timing launches
     return out
 
 
@@ -1669,10 +1679,10 @@ def phase_accel_fixed_iterations() -> None:
     e32 = RBCDEngine(p32, AgentConfig(dtype="float32", **base))
     s32 = state_from_numpy(state_to_numpy(s64), dtype=torch.float32, device=DEV)
     _, i64 = e64.run(s64)
-    before = hbm_rtr.LAUNCHES
+    before = _launches("k4")
     _, i32 = e32.run(s32)
-    launched = hbm_rtr.LAUNCHES - before
-    hbm_rtr.LAUNCHES = before  # not the main path
+    launched = _launches("k4") - before
+    _set_launches(k4=before)  # not the main path
     h64, h32 = np.array(i64["history"]["cost"]), np.array(i32["history"]["cost"])
     rel = float(np.max(np.abs(h32 - h64) / np.abs(h64)))
     print(f"accelerated fixed {ACCEL_STEPS} iterations: cost {h64[0]:.7g} -> "
@@ -1720,9 +1730,9 @@ def phase_certify():
         num_robots=5, update_rule=UpdateRule.ROUND_ROBIN, acceleration=True,
         local_initialization_method=InitMethod.CHORDAL, max_iteration_number=1000,
         dtype="float32", **CERT_RUN))
-    before = hbm_rtr.LAUNCHES
+    before = _launches("k4")
     st, info = eng.run()
-    hbm_rtr.LAUNCHES = before  # not the main path
+    _set_launches(k4=before)  # not the main path
     X, e = st.X, prob.edges
     lam_ms = _time(lambda: certificate.lambda_blocks(X, e), 5)
     Lam = certificate.lambda_blocks(X, e)
@@ -1949,7 +1959,7 @@ def phase_fleet_window() -> float:
     a repeated launch bit-identical; the GNC window holds fractional, zero
     and frozen loop-closure weights among its unmasked edges. Returns the
     max abs X error."""
-    before = hbm_rtr.LAUNCHES
+    before = _launches("k4")
     worst = 0.0
     for demo, robot, rounds, config in FLEET_WINDOWS:
         _, a = _mid_round_fleet(demo, robot, rounds, **config)
@@ -1975,7 +1985,7 @@ def phase_fleet_window() -> float:
               + json.dumps(launch_shape(w, 3, X.shape[1])), flush=True)
         if rounds:
             assert frac > 0 and zero > 0 and frozen > 0, (demo, frac, zero, frozen)
-        launched = hbm_rtr.LAUNCHES
+        launched = _launches("k4")
         for name, X0 in (("masked", X), ("placeholders", Xh)):
             Xk, sk = hbm_rtr.rtr_solve_hbm(X0, 0, P, e, DEMO_PARAMS, w)
             Xk2, sk2 = hbm_rtr.rtr_solve_hbm(X0, 0, P, e, DEMO_PARAMS, w)
@@ -1996,8 +2006,8 @@ def phase_fleet_window() -> float:
             assert f0r <= TOL_F0 and gn0r <= TOL_F0 and _df_rel(sk, sp) <= TOL_K4_DF, name
             assert err <= TOL_K4_X * scale and torch.equal(Xk[~own], X0[~own]), name
             assert same, f"fleet window {name}: a second launch differs"
-        assert hbm_rtr.LAUNCHES == launched + 4, demo
-    hbm_rtr.LAUNCHES = before  # the fleets' and the comparison's launches
+        assert _launches("k4") == launched + 4, demo
+    _set_launches(k4=before)  # the fleets' and the comparison's launches
     return worst
 
 
@@ -2031,7 +2041,7 @@ def phase_fleet_faults() -> None:
         return float(quadratic.cost(stiefel.lift_trajectory(
             T, torch.eye(3, dtype=torch.float64)), prob.edges))
 
-    before = hbm_rtr.LAUNCHES
+    before = _launches("k4")
     runs = {}
     for name, R, tr, extra in (
             ("perfect", 2, None, {}),
@@ -2053,11 +2063,11 @@ def phase_fleet_faults() -> None:
                 run()
 
             agent.runOnce = run_or_die
-        k4 = hbm_rtr.LAUNCHES
+        k4 = _launches("k4")
         t = time.time()
         res = ctl.run(max_ticks=4000)
         sec = time.time() - t
-        k4 = hbm_rtr.LAUNCHES - k4
+        k4 = _launches("k4") - k4
         its = sum(res["iterations"].values())
         runs[name] = res
         live = [k for k, done in enumerate(res["terminated"]) if done]
@@ -2076,7 +2086,7 @@ def phase_fleet_faults() -> None:
             runs[name + "_cost"] = c
     for name in ("lossy", "accelerated"):
         assert runs[name + "_cost"] <= 1.10 * runs["perfect_cost"], (name, runs)
-    hbm_rtr.LAUNCHES = before  # not the main path
+    _set_launches(k4=before)  # not the main path
 
 
 def phase_fleet_timing() -> dict:
@@ -2086,10 +2096,10 @@ def phase_fleet_timing() -> dict:
     each K4 launch of the run), the profiled wall. Returns {demo:
     readings}."""
     out = {}
-    before = hbm_rtr.LAUNCHES
+    before = _launches("k4")
     with tempfile.TemporaryDirectory() as tmp:
         for demo in JAX_FLEETS:
-            launched = hbm_rtr.LAUNCHES
+            launched = _launches("k4")
             with roofline.padded_profile() as prof:
                 t = time.time()
                 summary, extras = cli.run(fleet_argv(demo, os.path.join(tmp, demo)))
@@ -2101,11 +2111,11 @@ def phase_fleet_timing() -> dict:
                 events = json.load(f).get("traceEvents", [])
             dev = [e for e in events
                    if e.get("ph") == "X" and e.get("cat") in roofline.DEVICE_CATS]
-            busy = roofline.session_busy_ms(events, hbm_rtr.LAUNCHES - launched)
+            busy = roofline.session_busy_ms(events, _launches("k4") - launched)
             k4 = [e for e in dev if "rtr_window_kernel" in e.get("name", "")]
             k4_ms = sum(e["dur"] for e in k4) / 1e3
             kernels = sum(e.get("cat") == "kernel" for e in dev)
-            assert len(k4) == hbm_rtr.LAUNCHES - launched, (demo, len(k4))
+            assert len(k4) == _launches("k4") - launched, (demo, len(k4))
             out[demo] = dict(profiled_wall_s=wall, busy_ms=busy, k4_ms=k4_ms,
                              k4_launches=len(k4), k4_share_of_busy=k4_ms / max(busy, 1e-9),
                              kernel_launches=kernels, idle_share=1 - busy / (1e3 * wall),
@@ -2114,7 +2124,7 @@ def phase_fleet_timing() -> dict:
                   f"{busy:.3f} ms (idle share {out[demo]['idle_share']:.4f}), K4 "
                   f"{k4_ms:.3f} ms in {len(k4)} launches ({100 * k4_ms / max(busy, 1e-9):.1f} % "
                   f"of busy), {kernels} kernel launches", flush=True)
-    hbm_rtr.LAUNCHES = before  # timing launches
+    _set_launches(k4=before)  # timing launches
     return out
 
 
@@ -2277,7 +2287,7 @@ def phase_spmd_stretch() -> dict:
     _zero_counts()
     for it in range(16):
         st_a = step_a(it, 0, st_a)
-    k1 = fused_rtr.LAUNCHES
+    k1 = _launches("k1")
     for lt in range(2):
         st_b = step_b(lt, 0, st_b)
     counts = _counts()
@@ -2391,7 +2401,7 @@ def phase_spmd_compare() -> dict:
     TOL_X (K2: TOL_RUN_X), every pose outside the block bit-identical to
     the input, a repeated launch bit-identical. Returns {case: readings}."""
     out = {}
-    before = (fused_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES)
+    before = (_launches("k1"), _launches("k2"))
     for name, Xg, m, step, st in _slot_cases():
         w = step._windows[m]
         own = step._own[m]
@@ -2449,7 +2459,7 @@ def phase_spmd_compare() -> dict:
             assert r["steps"] == (n_steps, n_steps), (name, rule, r)
             assert rule == "rtr" or r["tcg"][0] == r["tcg"][1], (name, rule, r)
             assert r["x_rel"] <= TOL_RUN_X and r["repeat"] and r["untouched"], (name, rule)
-    fused_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES = before  # comparison launches
+    _set_launches(k1=before[0], k2=before[1])  # comparison launches
     return out
 
 
@@ -2523,7 +2533,7 @@ def phase_spmd_timing() -> dict:
     w, own = step._windows[m], step._own[m]
     e = dataclasses.replace(step._edges[m], weight=st.weights[m])
     Pinv = step._pinv(m, st.weights)
-    before = (fused_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES)
+    before = (_launches("k1"), _launches("k2"))
     k1 = lambda: fused_rtr.rtr_solve_fused(Xg, own, Pinv, e, DEMO_PARAMS, windows=w, row=0)
     plain = lambda: fused_rtr.rtr_solve_fused_ref(Xg, own, Pinv, e, DEMO_PARAMS, w.offsets)
     k1_dev = _kernel_ms(k1, "rtr_block_kernel")
@@ -2542,7 +2552,7 @@ def phase_spmd_timing() -> dict:
     k2_plain = _time(lambda: fused_rtr.rtr_run_fused_ref(
         Xg, bank, sched, Pinv, e, DEMO_PARAMS, cost0=torch.zeros(1, device=DEV),
         record=False, **kw), 1) / 8
-    fused_rtr.LAUNCHES, fused_rtr.RUN_LAUNCHES = before  # timing launches
+    _set_launches(k1=before[0], k2=before[1])  # timing launches
     # bounds over the block's poses, its live edges and its separators
     # (utils/work.py; the slot's padding copies carry no term)
     nk, Ek = int(w.num_poses[0]), int(w.edge_off[1])
@@ -2579,7 +2589,7 @@ def phase_spmd_timing() -> dict:
         k1_ms = sum(ev["dur"] for ev in k1_ev) / 1e3
     finally:
         multihost.shutdown()
-    fused_rtr.LAUNCHES = before[0]
+    _set_launches(k1=before[0])
     prof_out = dict(profiled_wall_s=wall, busy_ms=busy, k1_ms=k1_ms,
                     k1_launches=len(k1_ev), k1_share_of_busy=k1_ms / max(busy, 1e-9),
                     idle_share=1 - busy / (1e3 * wall), launches=summary["launches"])
@@ -2669,7 +2679,7 @@ def phase_compare_rgd() -> tuple:
     TOL_RUN_COST, every pose outside the block bit-unchanged, a second
     launch bit-identical. Returns (max abs X error, {case: launch shape})."""
     worst, shapes = 0.0, {}
-    before = fused_rtr.RUN_LAUNCHES
+    before = _launches("k2")
     for name, rtr_eng, st in _rgd_states():
         for rule in ("RoundRobin", "Parallel"):
             eng = _rgd(rtr_eng, rule)
@@ -2705,7 +2715,7 @@ def phase_compare_rgd() -> tuple:
                 assert math.isfinite(ck) and ck <= float(st.cost) * (1 + TOL_RUN_COST), case
                 assert xrel <= TOL_RUN_X and crel <= TOL_RUN_COST, case
                 assert untouched and same, case
-    fused_rtr.RUN_LAUNCHES = before  # comparison launches
+    _set_launches(k2=before)  # comparison launches
     return worst, shapes
 
 
@@ -2850,12 +2860,12 @@ def phase_timing_rgd() -> tuple:
     e = eng._edges(st0.weights)
     Pinv = eng._solver_cache(e)
     go = lambda: eng._local_solve(st0.X, e, eng._masks[0], Pinv, robot=0, cost=st0.cost)
-    before = fused_rtr.RUN_LAUNCHES
+    before = _launches("k2")
     dev = _kernel_ms(go, "rtr_run_kernel", reps=20)
     call = _time(go, 20)
     with mock.patch.object(fused_rtr, "rtr_run_fused", _k2_plain):
         plain = _time(go, 2)
-    fused_rtr.RUN_LAUNCHES = before  # timing launches
+    _set_launches(k2=before)  # timing launches
     prob = eng.problem
     nk, Ek, ns = block_work(prob, prob.robot_of_pose == 0)
     counts = SimpleNamespace(r=prob.r, d=prob.d, num_robots=prob.num_robots)
@@ -2869,18 +2879,24 @@ def phase_timing_rgd() -> tuple:
 
 
 def _trace_events(directory: str) -> list:
-    files = [f for f in os.listdir(directory) if f.endswith(".json")]
+    """The events of the one Chrome trace (``trace_*.json``) that
+    ``--profile_dir`` wrote into ``directory``, beside its span table."""
+    files = [f for f in os.listdir(directory)
+             if f.startswith("trace_") and f.endswith(".json")]
     assert len(files) == 1, files
     with open(os.path.join(directory, files[0])) as f:
         return json.load(f)["traceEvents"]
 
 
 def _dtoh(events) -> tuple:
-    """(device-to-host copies in a trace, those launched inside a
-    "snapshot" annotation): a copy's runtime call on the host, matched by
-    its correlation id, lies inside the annotation's interval."""
+    """(device-to-host copies in a trace, those launched inside the CLI's
+    "snapshot" span): a copy's runtime call on the host, matched by its
+    correlation id, lies inside the span's interval. The span is matched by
+    name on the host, whatever its category (``cpu_op`` for the profiler's
+    fast range event, ``user_annotation`` for ``record_function``)."""
     spans = [(ev["ts"], ev["ts"] + ev["dur"]) for ev in events
-             if ev.get("cat") == "user_annotation" and ev.get("name") == "snapshot"]
+             if ev.get("ph") == "X" and ev.get("name") == "snapshot"
+             and ev.get("cat") not in roofline.DEVICE_CATS]
     host = {ev["args"]["correlation"]: ev["ts"] for ev in events
             if ev.get("cat") == "cuda_runtime" and "correlation" in ev.get("args", {})}
     copies = [ev for ev in events

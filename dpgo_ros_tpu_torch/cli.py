@@ -161,9 +161,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the reference's per-robot telemetry CSVs here")
     p.add_argument(
         "--profile_dir",
-        help="capture a torch.profiler trace of the solve (engine, fused and "
-             "async modes; the card's kernels and copies when on CUDA) into "
-             "this dir as a Chrome trace (Perfetto, chrome://tracing)",
+        help="capture a torch.profiler trace of the build, initialization and "
+             "solve (the card's kernels and copies when on CUDA) into this dir "
+             "as a Chrome trace (Perfetto, chrome://tracing), with "
+             "spans_<pid>.json beside it: per span, calls, total, self and the "
+             "card's idle seconds",
     )
     p.add_argument(
         "--viz_interval", type=float, default=0.0,
@@ -476,7 +478,9 @@ class _Solved:
 def run(argv=None) -> Tuple[Dict, Dict]:
     """Parse, solve, export. Returns (summary, extras): the JSON summary and
     ``{"timing_sec": {init, solve, rounding, export, tcg_iterations or
-    ticks}, "initial_cost", ...}`` with, for the RBCD modes,
+    ticks, counters}, "initial_cost", ...}`` (``counters``: each counter
+    of ``utils/profiling`` that moved during the solve, by how much: kernel
+    launches, chordal CG steps and host syncs) with, for the RBCD modes,
     ``"block_updates", "restarts"`` (accelerated steps that restarted),
     ``"weight_rounds", "weights"`` (the final weights as numpy), for
     the async mode ``"ticks", "costs"`` and ``"ate_vs_ground_truth"``, and
@@ -507,7 +511,7 @@ def run(argv=None) -> Tuple[Dict, Dict]:
     from dpgo_ros_tpu_torch.models.problem import LiftedProblem
     from dpgo_ros_tpu_torch.ops import rounding
     from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
-    from dpgo_ros_tpu_torch.utils import export
+    from dpgo_ros_tpu_torch.utils import export, profiling
 
     cfg = dataclasses.replace(args_to_config(a), num_robots=data.num_robots)
     snap = _snapshot_writer(a, data)
@@ -538,31 +542,40 @@ def run(argv=None) -> Tuple[Dict, Dict]:
         dtype = torch.float32
         cfg = dataclasses.replace(cfg, num_robots=data.num_robots, dtype="float32")
 
-    t0 = _clock(device)
-    if a.mode == "fleet":  # the agents initialize themselves
-        prob, st, initial_cost = None, None, None
-        solve = _solve_fleet(data, cfg, device, frontend, a.checkpoint_dir, resume,
-                             snap)
-    else:
-        prob = LiftedProblem.from_data(
-            data, r=cfg.relaxation_rank, dtype=dtype, device=device
-        )
-        # the init pipeline of the other modes
-        eng = RBCDEngine(prob, dataclasses.replace(cfg, use_fused_kernel=None)
-                         if a.mode == "spmd" else cfg)
-        st = eng.initialize()
-        initial_cost = float(st.cost)
-        if is_async:
-            solve = _solve_async(a, eng, mgr, resume, snap)
-        elif a.mode == "spmd":
-            solve = _solve_spmd(a, cfg, eng, st, mesh, mgr, resume, snap)
+    def init_and_solve():
+        t0 = _clock(device)
+        if a.mode == "fleet":  # the agents initialize themselves
+            prob, st, initial_cost = None, None, None
+            solve = _solve_fleet(data, cfg, device, frontend, a.checkpoint_dir, resume,
+                                 snap)
         else:
-            if resume is not None:
-                st = _resume_rbcd(eng, resume)
-            solve = _solve_rbcd(a, eng, mgr, snap)
-    t1 = _clock(device)
-    out = solve(st)
-    t2 = _clock(device)
+            prob = LiftedProblem.from_data(
+                data, r=cfg.relaxation_rank, dtype=dtype, device=device
+            )
+            # the init pipeline of the other modes
+            eng = RBCDEngine(prob, dataclasses.replace(cfg, use_fused_kernel=None)
+                             if a.mode == "spmd" else cfg)
+            st = eng.initialize()
+            initial_cost = float(st.cost)
+            if is_async:
+                solve = _solve_async(a, eng, mgr, resume, snap)
+            elif a.mode == "spmd":
+                solve = _solve_spmd(a, cfg, eng, st, mesh, mgr, resume, snap)
+            else:
+                if resume is not None:
+                    st = _resume_rbcd(eng, resume)
+                solve = _solve_rbcd(a, eng, mgr, snap)
+        t1 = _clock(device)
+        before = profiling.counters()
+        out = solve(st)
+        t2 = _clock(device)
+        counted = {k: v - before.get(k, 0) for k, v in profiling.counters().items()
+                   if v != before.get(k, 0)}
+        return prob, initial_cost, out, (t0, t1, t2), counted
+
+    with profiling.device_trace(a.profile_dir, device, spans=True):
+        prob, initial_cost, out, (t0, t1, t2), counted = init_and_solve()
+    t_traced = time.time()  # the trace's export is in no phase
     # the async, fleet and spmd summaries have JAX's keys only: their ATE
     # goes to the extras
     scored = out.extras if is_async or a.mode in ("fleet", "spmd") else out.summary
@@ -605,8 +618,8 @@ def run(argv=None) -> Tuple[Dict, Dict]:
     if frontend is not None:
         _publish_to_frontend(frontend, out.T, data.num_poses)
     t4 = time.time()
-    timing = {"init": t1 - t0, "solve": t2 - t1, "rounding": t3 - t2,
-              "export": t4 - t3, out.work[0]: out.work[1]}
+    timing = {"init": t1 - t0, "solve": t2 - t1, "rounding": t3 - t_traced,
+              "export": t4 - t3, out.work[0]: out.work[1], "counters": counted}
     print("timing_sec " + json.dumps(timing), file=sys.stderr)
     return out.summary, dict(out.extras, timing_sec=timing,
                              initial_cost=initial_cost)
@@ -669,8 +682,7 @@ def _solve_rbcd(a, eng, mgr=None, snap=None):
     (checkpointed every ``--checkpoint_every`` global iterations, a
     snapshot where ``snap`` has one due: the state is read back only
     then; with ``--verbose`` one line per update), then the final
-    checkpoint, the TERMINATE finalize and rounding. ``--profile_dir``
-    traces the runner."""
+    checkpoint, the TERMINATE finalize and rounding."""
     from dpgo_ros_tpu_torch.utils import profiling
     from dpgo_ros_tpu_torch.utils.config import RobustCostType
 
@@ -680,26 +692,23 @@ def _solve_rbcd(a, eng, mgr=None, snap=None):
         if mgr is not None:
             mgr.maybe_save(s.iteration, s, eng.Ylift)
         if snap is not None and snap._due(s.iteration):
-            with profiling.annotate("snapshot"):
+            with profiling.span("snapshot"):
                 snap.snapshot(s.iteration, s.X, weights=s.weights, cost=float(s.cost))
 
     def solve(st) -> _Solved:
         rows, iter_times, events = None, None, []
-        trace = profiling.device_trace(a.profile_dir, eng.device)
         if a.mode == "fused":
             # the engine's resolved config carries the GNC iteration budget
             record = bool(a.log_directory)
             cap = eng.config.max_iteration_number
             if eng.config.acceleration:  # a loop of per-step solves, no K2
                 runner = eng.make_fused_run(cap, record=record)
-                with trace:
-                    out = runner(st)
+                out = runner(st)
                 out = (out,) if not record else out
                 stats = runner.last_stats
             else:
                 runner = eng.make_fused_run(cap, record=record, return_stats=True)
-                with trace:
-                    out = runner(st)
+                out = runner(st)
                 stats = {"tcg_iterations": out[-1], "restarts": 0}
             st = out[0]
             info = {"iterations": st.iteration, "final_cost": float(st.cost), **stats}
@@ -710,9 +719,8 @@ def _solve_rbcd(a, eng, mgr=None, snap=None):
                 events = [(int(i), "UPDATE_WEIGHT")
                           for i in np.flatnonzero(out[2].numpy())]
         else:
-            with trace:
-                st, info = eng.run(st, callback=cb if mgr is not None or snap is not None
-                                   else None)
+            st, info = eng.run(st, callback=cb if mgr is not None or snap is not None
+                               else None)
             h = info["history"]
             if h["rel_change_robots"]:
                 rows = np.stack(h["rel_change_robots"])
@@ -944,11 +952,10 @@ def _solve_async(a, eng, mgr=None, resume=None, snap=None):
     ``runOnceAsynchronous``, ``src/PGOAgentROS.cpp:119-127``;
     ``launch/asapp_demo.launch``), a snapshot after each chunk where
     ``snap`` has one due, a final checkpoint, then rounding. P⁻¹ is built
-    here, in the init phase. ``--profile_dir`` traces the ticks."""
+    here, in the init phase."""
     from dpgo_ros_tpu_torch.ops import quadratic, rounding
     from dpgo_ros_tpu_torch.parallel.asapp import ASAPPEngine, ASAPPState
     from dpgo_ros_tpu_torch.utils import checkpoint as ckpt
-    from dpgo_ros_tpu_torch.utils import profiling
 
     prob = eng.problem
     aeng = ASAPPEngine(prob, eng.config)
@@ -960,13 +967,12 @@ def _solve_async(a, eng, mgr=None, resume=None, snap=None):
 
     def solve(st) -> _Solved:
         on_chunk = (lambda t, s: snap.maybe_snapshot(t, s.X)) if snap is not None else None
-        with profiling.device_trace(a.profile_dir, eng.device):
-            ast, info = aeng.run(
-                st.X if resumed is None else None, state=resumed,
-                num_ticks=aeng.config.max_iteration_number,
-                tol=aeng.config.asapp_tolerance, record=bool(a.log_directory),
-                on_chunk=on_chunk,
-            )
+        ast, info = aeng.run(
+            st.X if resumed is None else None, state=resumed,
+            num_ticks=aeng.config.max_iteration_number,
+            tol=aeng.config.asapp_tolerance, record=bool(a.log_directory),
+            on_chunk=on_chunk,
+        )
         if mgr is not None:
             mgr.save(ast.tick, ast, None, meta={"tick": ast.tick, "final": True})
             print(f"async checkpoint written to {mgr.step_path(ast.tick)}",

@@ -15,6 +15,7 @@ import torch
 
 from dpgo_ros_tpu_torch.ops.lie import project_to_so
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet, pull_sum
+from dpgo_ros_tpu_torch.utils import profiling
 
 # host syncs to test the CG stopping rule happen once per this many steps;
 # steps past convergence are frozen, so the iterate equals a per-step test's
@@ -38,20 +39,27 @@ def _translation_operator(V: torch.Tensor, e: EdgeSet) -> torch.Tensor:
     return pull_sum(c, -c, e.pull)
 
 
+@profiling.spanned("chordal.cg")
 def _cg(matvec, b, x0, max_iters: int, tol: float):
     """Plain CG, stopping once ‖r‖² ≤ tol²‖b‖² or after max_iters steps.
 
     The stopping rule is evaluated on the device at every step (a step
     after convergence leaves the state unchanged) and read on the host
-    every CHECK_EVERY steps, so the result is that of a per-step test."""
+    every CHECK_EVERY steps, so the result is that of a per-step test.
+    Counts its steps (``chordal.cg_steps``) and those reads
+    (``chordal.host_syncs``)."""
     x = x0
     r = b - matvec(x0)
     p = r
     rs = torch.sum(r * r)
     thresh = tol * tol * torch.clamp(torch.sum(b * b), min=1e-30)
+    steps = syncs = 0
     for it in range(max_iters):
-        if it % CHECK_EVERY == 0 and not bool(rs > thresh):
-            break
+        if it % CHECK_EVERY == 0:
+            syncs += 1
+            if not bool(rs > thresh):
+                break
+        steps += 1
         active = rs > thresh
         Ap = matvec(p)
         denom = torch.sum(p * Ap)
@@ -68,6 +76,8 @@ def _cg(matvec, b, x0, max_iters: int, tol: float):
         r = torch.where(active, r_n, r)
         p = torch.where(active, p_n, p)
         rs = torch.where(active, rs_n, rs)
+    profiling.count("chordal.cg_steps", steps)
+    profiling.count("chordal.host_syncs", syncs)
     return x
 
 

@@ -40,9 +40,7 @@ import torch
 
 from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, quadratic, stiefel
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet
-
-# launches of K3 (not of the plain version)
-TICK_LAUNCHES = 0
+from dpgo_ros_tpu_torch.utils import profiling
 
 
 def _checked(X, hist, masks, Pinv, edges, delays, offsets, fdt):
@@ -164,7 +162,6 @@ def _check_windows(X, masks, edges, windows) -> None:
 
 def _launch(X, hist, Pinv, edges, delays, gamma, steps, use_precond, kw, tw,
             windows, live, rel):
-    global TICK_LAUNCHES
     n, r, dp1 = X.shape
     d = dp1 - 1
     R = windows.num_rows
@@ -187,7 +184,7 @@ def _launch(X, hist, Pinv, edges, delays, gamma, steps, use_precond, kw, tw,
             ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
         )
     fused_rtr.check_launch("asapp_tick", rc, nc)
-    TICK_LAUNCHES += 1
+    profiling.count("k3.launches")  # the CUDA kernel's (not the plain version's)
     return X_out, moved
 
 

@@ -59,6 +59,7 @@ from dpgo_ros_tpu_torch.models.local_solvers import (
 )
 from dpgo_ros_tpu_torch.ops import quadratic
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet
+from dpgo_ros_tpu_torch.utils import profiling
 
 S_F0, S_F, S_GN0, S_GN, S_ITERS, S_TCG = range(6)
 S_MOVED = 6  # [6 : 6+R] per-robot displacement; [6+R : 6+2R] updated flag
@@ -78,10 +79,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-
-# launches of the CUDA kernels (not of the plain versions): K1, K2
-LAUNCHES = 0
-RUN_LAUNCHES = 0
 
 _libs: Dict[Path, ctypes.CDLL] = {}
 
@@ -316,7 +313,6 @@ def _checked_operands(who, X, mask, Pinv, edges, params, offsets, float_dtype):
 
 
 def _launch(X, Pinv, edges, params, kw, tw, windows, row):
-    global LAUNCHES
     _, r, dp1 = X.shape
     d = dp1 - 1
     R = windows.num_robots
@@ -345,7 +341,7 @@ def _launch(X, Pinv, edges, params, kw, tw, windows, row):
             ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
         )
     check_launch("rtr_block_solve", rc, nc)
-    LAUNCHES += 1
+    profiling.count("k1.launches")  # the CUDA kernel's (not the plain version's)
     return X_out, stats
 
 
@@ -533,7 +529,6 @@ def _check_row_windows(windows, bank, X, edges) -> None:
 
 def _launch_run(X, bank, sched, Pinv, edges, params, adj, rel0, cost0,
                 offsets, kw, tw, run, windows):
-    global RUN_LAUNCHES
     _, r, dp1 = X.shape
     d = dp1 - 1
     R = offsets.shape[0] - 1
@@ -572,7 +567,7 @@ def _launch_run(X, bank, sched, Pinv, edges, params, adj, rel0, cost0,
             ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
         )
     check_launch("rtr_run", rc, nc)
-    RUN_LAUNCHES += 1
+    profiling.count("k2.launches")  # the CUDA kernel's (not the plain version's)
     out = (X_out, rel, stats)
     return out + (rel_hist,) if run["record"] else out
 

@@ -55,12 +55,10 @@ import torch
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams, rtr_solve
 from dpgo_ros_tpu_torch.ops import fused_rtr, quadratic
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet, build_pull_index
+from dpgo_ros_tpu_torch.utils import profiling
 
 S_MOVED = 6
 STATS_LEN = 7
-
-# launches of the CUDA kernel (not of the plain version)
-LAUNCHES = 0
 
 
 # the cluster of one launch (csrc/rtr_cluster.cuh): about one window pose
@@ -170,6 +168,7 @@ def prepare_windows(problem) -> Windows:
     return prepare_row_windows(problem, [(k,) for k in range(problem.num_robots)])
 
 
+@profiling.spanned("k4.windows")
 def prepare_row_windows(problem, rows) -> Windows:
     """One window per row of robots (``rows``: sequences of robot ids, in
     ascending order): the union of their blocks, the edges with an endpoint
@@ -290,6 +289,7 @@ def prepare_mask_window(problem, mask) -> Windows:
     return prepare_row_windows(problem, [robots])
 
 
+@profiling.spanned("k4.launch")
 def rtr_solve_hbm(
     X: torch.Tensor,
     robot: int,
@@ -327,7 +327,6 @@ def rtr_solve_hbm(
 
 
 def _launch(X, robot, Pinv, edges, params, windows, kw, tw):
-    global LAUNCHES
     n, r, dp1 = X.shape
     d = dp1 - 1
     poses, eids, lsrc, ldst, pull = windows.window(robot)
@@ -353,7 +352,7 @@ def _launch(X, robot, Pinv, edges, params, windows, kw, tw):
             ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
         )
     fused_rtr.check_launch("rtr_window_solve", rc, nc)
-    LAUNCHES += 1
+    profiling.count("k4.launches")  # the CUDA kernel's (not the plain version's)
     return X_out, stats
 
 

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from dpgo_ros_tpu_torch.ops import fused_rtr
+from dpgo_ros_tpu_torch.utils import profiling
 
 NCHAIN = 8
 ROWS = 256
@@ -33,10 +34,6 @@ ITERS = (500, 2000, 10000)
 # operations per element and step, as the JAX package counts them
 CHAIN_FLOPS = 3  # mul, sub, mul
 CML_FLOPS = 6  # mul, mul, add, mul, floor, sub-mul counted as 2
-
-# launches of the CUDA kernels (not of the plain versions): K5, K6
-LAUNCHES = 0
-CML_LAUNCHES = 0
 
 
 def _check(who: str, x: torch.Tensor, n_iter: int) -> None:
@@ -70,24 +67,22 @@ def _launch(entry: str, x: torch.Tensor, n_iter: int) -> torch.Tensor:
 def chain_fused(x: torch.Tensor, n_iter: int) -> torch.Tensor:
     """K5: ``n_iter`` logistic-map steps on each of the 8 slabs of ``x``
     (NCHAIN·ROWS, LANES) fp32, then their sum (ROWS, LANES)."""
-    global LAUNCHES
     _check("chain_fused", x, n_iter)
     if x.device.type == "cpu":
         return chain_ref(x, n_iter)
     out = _launch("dpgo_peak_chain", x, n_iter)
-    LAUNCHES += 1
+    profiling.count("k5.launches")  # the CUDA kernel's (not the plain version's)
     return out
 
 
 def chain_cml_fused(x: torch.Tensor, n_iter: int) -> torch.Tensor:
     """K6: ``n_iter`` coupled-map-lattice steps over the 8 slabs of ``x``,
     then their sum (ROWS, LANES)."""
-    global CML_LAUNCHES
     _check("chain_cml_fused", x, n_iter)
     if x.device.type == "cpu":
         return chain_cml_ref(x, n_iter)
     out = _launch("dpgo_peak_chain_cml", x, n_iter)
-    CML_LAUNCHES += 1
+    profiling.count("k6.launches")  # the CUDA kernel's (not the plain version's)
     return out
 
 

@@ -68,6 +68,7 @@ from dpgo_ros_tpu_torch.ops import (
     stiefel,
 )
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet, build_pull_index
+from dpgo_ros_tpu_torch.utils import profiling
 
 # Sequential block solves run on the robot's gathered window (K4): on the
 # H100 it beat K1 (then full-width under the robot's mask) on every
@@ -368,6 +369,7 @@ class RBCDEngine:
             return comp(comp(comp(Ga, traj_a[i]), Me), inv(traj_b[j]))
         return comp(comp(Ga, traj_a[j]), inv(comp(traj_b[i], Me)))
 
+    @profiling.spanned("rbcd.initialize")
     def initialize(
         self,
         trajectory: Optional[np.ndarray] = None,
@@ -534,6 +536,7 @@ class RBCDEngine:
             st_new = st_new._replace(theta=torch.ones_like(st.theta))
         return st_new, k, host[:3], restarted
 
+    @profiling.spanned("rbcd.read")
     def _read(self, st: RBCDState, rc, *flags):
         """The step's one host read: (rel change (R,), rc, cost, flags)."""
         R = st.rel_change.shape[0]
@@ -574,6 +577,7 @@ class RBCDEngine:
             rel_change=rel_change,
         ), rc, 0 if self._rgd else stats[fused_rtr.S_TCG]
 
+    @profiling.spanned("rbcd.step")
     def _step(self, st: RBCDState, row: int, Pinv=None):
         """One scheduled block update: the robot holding the update token
         (Uniform, RoundRobin) or every robot of colour ``row`` at once
@@ -659,6 +663,7 @@ class RBCDEngine:
 
     # ------------------------------------------------------------------ run
 
+    @profiling.spanned("rbcd.run")
     def run(
         self,
         state: Optional[RBCDState] = None,
@@ -690,17 +695,19 @@ class RBCDEngine:
         tcg = torch.zeros((), dtype=self.dtype, device=self.device)
         it = restarts = 0
         last_wu = state.iteration
-        rel = state.rel_change.cpu().numpy().astype(np.float64)
+        with profiling.span("rbcd.read"):
+            rel = state.rel_change.cpu().numpy().astype(np.float64)
         while it < max_iters:
             if gnc and self._round_due(
                 state.iteration, last_wu, rel, state.weight_update_count
             ):
-                last_wu = state.iteration
-                state = self._weight_update_impl(state)
-                history["event"].append((it, "UPDATE_WEIGHT"))
-                if state.weight_update_count <= cfg.robust_opt_num_resets:
-                    state = self._reset(state)
-                Pinv = self._solver_cache(self._edges(state.weights))
+                with profiling.span("rbcd.weight_round"):
+                    last_wu = state.iteration
+                    state = self._weight_update_impl(state)
+                    history["event"].append((it, "UPDATE_WEIGHT"))
+                    if state.weight_update_count <= cfg.robust_opt_num_resets:
+                        state = self._reset(state)
+                    Pinv = self._solver_cache(self._edges(state.weights))
             t0 = time.time()
             state, k, (rel, rc, cost), restarted = self._step(
                 state, int(sched[state.iteration]), Pinv)
@@ -719,17 +726,18 @@ class RBCDEngine:
         # the steps carry the cost by the windows' f − f0: end on the
         # world's cost of the final state
         state = state._replace(cost=quadratic.cost(state.X, self._edges(state.weights)))
-        info = {
-            "history": history,
-            "iterations": it,
-            "total_time_sec": time.time() - t_start,
-            "final_cost": float(state.cost),
-            "converged": bool(np.all(rel < cfg.relative_change_tolerance)),
-            "tcg_iterations": int(tcg),
-            "restarts": restarts,
-        }
-        if gnc:
-            info.update(self.gnc_info(state.weights))
+        with profiling.span("rbcd.read"):
+            info = {
+                "history": history,
+                "iterations": it,
+                "total_time_sec": time.time() - t_start,
+                "final_cost": float(state.cost),
+                "converged": bool(np.all(rel < cfg.relative_change_tolerance)),
+                "tcg_iterations": int(tcg),
+                "restarts": restarts,
+            }
+            if gnc:
+                info.update(self.gnc_info(state.weights))
         return state, info
 
     def _terminated(self, rel: np.ndarray, wuc: int) -> bool:
@@ -754,6 +762,7 @@ class RBCDEngine:
             "gnc_converged": ratio >= self.config.robust_opt_min_convergence_ratio,
         }
 
+    @profiling.spanned("rbcd.fused_prepare")
     def make_fused_run(self, max_iters: int, record: bool = False,
                        return_stats: bool = False, schedule=None):
         """A runner ``run(state)`` that executes the solve as K2 launches
@@ -791,6 +800,7 @@ class RBCDEngine:
         windows = self._row_windows
         R = prob.num_robots
 
+        @profiling.spanned("rbcd.fused_run")
         def run(st: RBCDState):
             X0 = st.X
             X, it, cost, rel = st.X, st.iteration, st.cost, st.rel_change
@@ -803,22 +813,24 @@ class RBCDEngine:
                 ev_h = torch.zeros((max_iters,), dtype=torch.int8)
             tcg = 0
             while it < max_iters:
-                rel_np = rel.cpu().numpy().astype(np.float64)
+                with profiling.span("rbcd.read"):
+                    rel_np = rel.cpu().numpy().astype(np.float64)
                 if self._terminated(rel_np, wuc):
                     break
                 if gnc and self._round_due(it, last_wu, rel_np, wuc):
-                    last_wu = it
-                    s2 = self._weight_update_impl(RBCDState(
-                        X=X, X_prev=X, V=X, theta=st.theta, iteration=it,
-                        cost=cost, rel_change=rel, weights=w, fixed_mask=fixed,
-                        mu=mu, weight_update_count=wuc,
-                    ))
-                    w, fixed, mu, wuc = s2.weights, s2.fixed_mask, s2.mu, s2.weight_update_count
-                    cost, rel = s2.cost, s2.rel_change
-                    if wuc <= cfg.robust_opt_num_resets:
-                        X = X0
-                        cost = quadratic.cost(X, self._edges(w))
-                    Pinv = self._solver_cache(self._edges(w))
+                    with profiling.span("rbcd.weight_round"):
+                        last_wu = it
+                        s2 = self._weight_update_impl(RBCDState(
+                            X=X, X_prev=X, V=X, theta=st.theta, iteration=it,
+                            cost=cost, rel_change=rel, weights=w, fixed_mask=fixed,
+                            mu=mu, weight_update_count=wuc,
+                        ))
+                        w, fixed, mu = s2.weights, s2.fixed_mask, s2.mu
+                        wuc, cost, rel = s2.weight_update_count, s2.cost, s2.rel_change
+                        if wuc <= cfg.robust_opt_num_resets:
+                            X = X0
+                            cost = quadratic.cost(X, self._edges(w))
+                        Pinv = self._solver_cache(self._edges(w))
                     if record:
                         ev_h[it] = 1
                 out = fused_rtr.rtr_run_fused(
@@ -833,7 +845,8 @@ class RBCDEngine:
                 )
                 X, rel, stats = out[:3]
                 cost = stats[fused_rtr.RUN_COST].to(self.dtype)
-                _, it_f, _, tcg_f = stats.tolist()
+                with profiling.span("rbcd.read"):
+                    _, it_f, _, tcg_f = stats.tolist()
                 it, tcg = int(it_f), tcg + int(tcg_f)
                 if record:
                     rel_h = torch.where(torch.isnan(out[3]), rel_h, out[3])
@@ -864,10 +877,12 @@ class RBCDEngine:
         gnc = cfg.robust_cost_type != RobustCostType.L2
         sched = self.update_schedule(max_iters, schedule)
 
+        @profiling.spanned("rbcd.fused_run")
         def run(st: RBCDState):
             X0 = st.X
             Pinv = self._solver_cache(self._edges(st.weights))
-            rel = st.rel_change.cpu().numpy().astype(np.float64)
+            with profiling.span("rbcd.read"):
+                rel = st.rel_change.cpu().numpy().astype(np.float64)
             rel_h = np.full((max_iters, R), np.nan)
             ev_h = torch.zeros((max_iters,), dtype=torch.int8)
             last_wu, tcg, restarts = st.iteration, 0.0, 0
@@ -876,12 +891,13 @@ class RBCDEngine:
                 i = st.iteration
                 fired = gnc and self._round_due(i, last_wu, rel, st.weight_update_count)
                 if fired:
-                    last_wu = i
-                    st = self._weight_update_impl(st)
-                    if st.weight_update_count <= cfg.robust_opt_num_resets:
-                        st = st._replace(X=X0, X_prev=X0, V=X0, cost=quadratic.cost(
-                            X0, self._edges(st.weights)))
-                    Pinv = self._solver_cache(self._edges(st.weights))
+                    with profiling.span("rbcd.weight_round"):
+                        last_wu = i
+                        st = self._weight_update_impl(st)
+                        if st.weight_update_count <= cfg.robust_opt_num_resets:
+                            st = st._replace(X=X0, X_prev=X0, V=X0, cost=quadratic.cost(
+                                X0, self._edges(st.weights)))
+                        Pinv = self._solver_cache(self._edges(st.weights))
                 st, k, (rel, _, _), restarted = self._step(st, int(sched[i]), Pinv)
                 tcg, restarts = tcg + k, restarts + restarted
                 rel_h[i], ev_h[i] = rel, int(fired)
@@ -892,6 +908,7 @@ class RBCDEngine:
 
         return run
 
+    @profiling.spanned("rbcd.finalize")
     def finalize(self, state: RBCDState) -> Tuple[np.ndarray, RBCDState]:
         """TERMINATE semantics (reference ``PGOAgentROS.cpp:1036-1082``):
         under GNC_TLS, settle the undecided loop-closure weights by final

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 from torch.overrides import TorchFunctionMode
 
-from dpgo_ros_tpu_torch.ops import fused_asapp, fused_rtr, hbm_rtr, peak_chains
+from dpgo_ros_tpu_torch.utils import profiling
 from dpgo_ros_tpu_torch.scripts import measure_peaks
 
 REPO = Path(__file__).resolve().parents[2]
@@ -87,9 +87,7 @@ def emit(obj: dict, out: Optional[str] = None) -> dict:
 
 def counts() -> dict:
     """Every kernel wrapper's launch counter (K1–K6)."""
-    return {"k1": fused_rtr.LAUNCHES, "k2": fused_rtr.RUN_LAUNCHES,
-            "k3": fused_asapp.TICK_LAUNCHES, "k4": hbm_rtr.LAUNCHES,
-            "k5": peak_chains.LAUNCHES, "k6": peak_chains.CML_LAUNCHES}
+    return profiling.launches()
 
 
 def launched(before: dict) -> dict:

@@ -69,7 +69,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr
+from dpgo_ros_tpu_torch.ops import fused_rtr
 from dpgo_ros_tpu_torch.scripts import measure_peaks, roofline
 from dpgo_ros_tpu_torch.utils import profiling
 
@@ -149,7 +149,7 @@ def child(arm: str, traces: int, heavy_s: float, session: str, long_s: float,
             X, _ = solve(X, roofline.forced_params(1))
 
     def traced(fn, pad=True):
-        before = hbm_rtr.LAUNCHES
+        before = profiling.launches()["k4"]
         if pad:
             with padded(pad=pad_s) as prof:
                 if marker:
@@ -163,7 +163,7 @@ def child(arm: str, traces: int, heavy_s: float, session: str, long_s: float,
                 with record_function("body"):
                     fn()
                 torch.cuda.synchronize()
-        return read(profiling.chrome_events(prof), hbm_rtr.LAUNCHES - before)
+        return read(profiling.chrome_events(prof), profiling.launches()["k4"] - before)
 
     def heavy():
         t0 = time.time()

@@ -59,13 +59,13 @@ from dpgo_ros_tpu_torch.io import datasets
 from dpgo_ros_tpu_torch.io.synthetic import generate_world
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import (chordal, fused_asapp, fused_rtr, hbm_rtr, peak_chains,
-                                    quadratic, rounding, stiefel)
+from dpgo_ros_tpu_torch.ops import chordal, fused_rtr, hbm_rtr, quadratic, rounding, stiefel
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
 from dpgo_ros_tpu_torch.scripts import measure_peaks
 from dpgo_ros_tpu_torch.utils.config import AgentConfig, RobustCostType, UpdateRule
 # the padded trace lives in utils/profiling.py; scripts/trace_pad.py and
 # chip_smoke.py reach it through this module
+from dpgo_ros_tpu_torch.utils import profiling
 from dpgo_ros_tpu_torch.utils.profiling import chrome_events, padded_profile
 from dpgo_ros_tpu_torch.utils.work import (
     FP32_FLOPS_PER_S,
@@ -215,8 +215,7 @@ def busy_us(intervals) -> float:
 
 def launches() -> int:
     """Every kernel wrapper's launches so far (K1–K6 counters)."""
-    return (fused_rtr.LAUNCHES + fused_rtr.RUN_LAUNCHES + fused_asapp.TICK_LAUNCHES
-            + hbm_rtr.LAUNCHES + peak_chains.LAUNCHES + peak_chains.CML_LAUNCHES)
+    return sum(profiling.launches().values())
 
 
 def session_busy_ms(events, launched: int = 0) -> float:

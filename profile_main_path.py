@@ -53,8 +53,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from dpgo_ros_tpu_torch import cli
-from dpgo_ros_tpu_torch.ops import fused_asapp, fused_rtr, hbm_rtr
 from dpgo_ros_tpu_torch.scripts.roofline import DEVICE_CATS, busy_us
+from dpgo_ros_tpu_torch.utils import profiling
 
 KERNELS = {"k1": "rtr_block_kernel", "k2": "rtr_run_kernel", "k3": "asapp_tick_kernel",
            "k4": "rtr_window_kernel"}
@@ -69,13 +69,11 @@ WORLDS = {
 
 
 def _launches():
-    return {"k1": fused_rtr.LAUNCHES, "k2": fused_rtr.RUN_LAUNCHES,
-            "k3": fused_asapp.TICK_LAUNCHES, "k4": hbm_rtr.LAUNCHES}
+    return {k: v for k, v in profiling.launches().items() if k in KERNELS}
 
 
 def _zero_launches():
-    fused_rtr.LAUNCHES = fused_rtr.RUN_LAUNCHES = fused_asapp.TICK_LAUNCHES = 0
-    hbm_rtr.LAUNCHES = 0
+    profiling.set_counters({f"{k}.launches": 0 for k in profiling.KERNELS})
 
 
 def main(argv=None) -> int:

@@ -37,6 +37,7 @@ from dpgo_ros_tpu_torch import cli
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import fused_asapp, quadratic
 from dpgo_ros_tpu_torch.parallel.asapp import ASAPPEngine, ASAPPState
+from dpgo_ros_tpu_torch.utils import profiling
 from torch_parity import noisy_lifted_gt, port_config, rel_err, world
 
 TOL64 = 1e-9
@@ -281,7 +282,7 @@ def test_cli_async_prints_jax_summary_keys(argv, tmp_path, capsys):
                              "final_cost", "wall_time_sec"]
     assert summary["mode"] == "async"
     timing = json.loads(err.split("timing_sec ", 1)[1].splitlines()[0])
-    assert set(timing) == {"init", "solve", "rounding", "export", "ticks"}
+    assert set(timing) == {"init", "solve", "rounding", "export", "ticks", "counters"}
     assert timing["ticks"] == summary["ticks"]
     if "--demo" in argv:
         assert summary["steps_per_tick"] == 1 and summary["converged"]
@@ -324,9 +325,9 @@ def test_tick_kernel_matches_plain_version_on_card():
     delays = torch.tensor([0, 1, 2], dtype=torch.int32, device="cuda")
     args = (st.X, st.hist, teng._masks, teng._Pinv, tp.edges, delays, 0.2, 2,
             True, teng._offsets)
-    launches = fused_asapp.TICK_LAUNCHES
+    launches = profiling.launches()["k3"]
     X_k, m_k = fused_asapp.asapp_tick_fused(*args, windows=teng._windows)
-    assert fused_asapp.TICK_LAUNCHES == launches + 1
+    assert profiling.launches()["k3"] == launches + 1
     X_p, m_p = fused_asapp.asapp_tick_fused_ref(*args)
     assert rel_err(X_k.cpu(), X_p.cpu()) < 1e-4
     assert rel_err(m_k.cpu(), m_p.cpu()) < 1e-3

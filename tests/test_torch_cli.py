@@ -48,7 +48,8 @@ def test_cli_end_to_end_matches_engine(tmp_path, rule, capsys):
     assert set(summary) >= {"iterations", "final_cost", "wall_time_sec",
                             "ate_vs_ground_truth"}
     timing = json.loads(err.split("timing_sec ", 1)[1].splitlines()[0])
-    assert set(timing) == {"init", "solve", "rounding", "export", "tcg_iterations"}
+    assert set(timing) == {"init", "solve", "rounding", "export", "tcg_iterations",
+                           "counters"}
     assert timing["tcg_iterations"] >= summary["iterations"]
     for suffix in ["_global.g2o", "_robot0.tum", "_robot1.tum", ".html"]:
         assert Path(prefix + suffix).stat().st_size > 0

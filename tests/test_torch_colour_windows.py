@@ -38,6 +38,7 @@ from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, quadratic, stiefel
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
+from dpgo_ros_tpu_torch.utils import profiling
 from dpgo_ros_tpu_torch.utils.config import AgentConfig, UpdateRule
 from torch_parity import rel_err, world
 
@@ -193,10 +194,10 @@ def test_mask_window_rejects_masks_k1_does_not_solve(sphere, bad):
 def test_wrapper_with_windows_runs_the_plain_version_on_cpu(sphere):
     tp, eng, X, Pinv = sphere
     mask, w = eng._color_masks[0], eng._row_windows
-    launches = fused_rtr.LAUNCHES
+    launches = profiling.launches()["k1"]
     X_k, s_k = fused_rtr.rtr_solve_fused(X, mask, Pinv, tp.edges, RTRParams(**DEMO),
                                          windows=w, row=0)
-    assert fused_rtr.LAUNCHES == launches
+    assert profiling.launches()["k1"] == launches
     X_p, s_p = fused_rtr.rtr_solve_fused_ref(X, mask, Pinv, tp.edges, RTRParams(**DEMO),
                                              w.offsets)
     assert torch.equal(X_k, X_p) and torch.equal(s_k, s_p)

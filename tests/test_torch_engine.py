@@ -28,6 +28,7 @@ from dpgo_ros_tpu_torch.parallel.rbcd import (
     state_from_numpy,
     state_to_numpy,
 )
+from dpgo_ros_tpu_torch.utils import profiling
 from torch_parity import port_config, rel_err, world
 
 TOL = 1e-7
@@ -121,13 +122,13 @@ def test_every_block_update_goes_through_rtr_solve_fused(
         return real(X, *args, **kw)
 
     monkeypatch.setattr(fused_rtr, "rtr_solve_fused", counting)
-    launches = fused_rtr.LAUNCHES
+    launches = profiling.launches()["k1"]
     cfg = _cfg(UpdateRule.PARALLEL, use_fused_kernel=use_fused_kernel)
     eng = RBCDEngine(tp, port_config(cfg))
     _, info = eng.run(eng.initialize(ylift=np.eye(5, 3)), max_iters=4)
     assert info["iterations"] == 4
     assert calls == ["cpu"] * 4
-    assert fused_rtr.LAUNCHES == launches  # CPU tensors: plain version
+    assert profiling.launches()["k1"] == launches  # CPU tensors: plain version
 
 
 @pytest.mark.parametrize("what", ["acceleration", "gnc", "uniform"])

@@ -20,6 +20,7 @@ from dpgo_ros_tpu.ops import quadratic as j_quad
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams, rtr_solve
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, quadratic, stiefel
+from dpgo_ros_tpu_torch.utils import profiling
 from torch_parity import noisy_lifted_gt, random_state, rel_err, world
 
 DEMO = dict(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
@@ -60,12 +61,12 @@ def test_fused_cpu_matches_pallas_interpret(name, which):
     X_j = np.where(mask > 0, np.asarray(j_fused.from_t(Xt_j, jp.n, 5, 4)), X)
     s_j = np.asarray(s_j)[0]
 
-    launches = fused_rtr.LAUNCHES
+    launches = profiling.launches()["k1"]
     X_t, s_t = fused_rtr.rtr_solve_fused(
         torch.as_tensor(X), torch.as_tensor(mask), torch.as_tensor(Pinv),
         tp.edges, RTRParams(**DEMO), offsets=_offsets(tp),
     )
-    assert fused_rtr.LAUNCHES == launches  # CPU tensors: plain version
+    assert profiling.launches()["k1"] == launches  # CPU tensors: plain version
     X_t = np.where(mask > 0, X_t.numpy(), X)
     s_t = s_t.numpy()
     R = tp.num_robots
@@ -178,10 +179,10 @@ def test_kernel_matches_plain_version_on_card():
     mask = torch.as_tensor(_masks(tp, "robot0"), dtype=torch.float32, device="cuda")
     Pinv = quadratic.precond_inverse(quadratic.precond_blocks(tp.edges, tp.n)).contiguous()
     offs = _offsets(tp).cuda()
-    launches = fused_rtr.LAUNCHES
+    launches = profiling.launches()["k1"]
     X_k, s_k = fused_rtr.rtr_solve_fused(X, mask, Pinv, tp.edges, RTRParams(**DEMO), offs,
                                          windows=hbm_rtr.prepare_windows(tp), row=0)
-    assert fused_rtr.LAUNCHES == launches + 1
+    assert profiling.launches()["k1"] == launches + 1
     X_p, s_p = fused_rtr.rtr_solve_fused_ref(X, mask, Pinv, tp.edges, RTRParams(**DEMO), offs)
     X_p = torch.where(mask > 0, X_p, X)
     assert int(s_k[4]) == int(s_p[4])

@@ -44,6 +44,7 @@ from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, quadratic, stiefel
 from dpgo_ros_tpu_torch.parallel import rbcd
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
+from dpgo_ros_tpu_torch.utils import profiling
 from torch_parity import port_config, rel_err, world
 
 DEMO = dict(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
@@ -139,12 +140,12 @@ def test_plain_version_matches_pallas_interpret(k4_world, robot):
     X_j = np.asarray(j_fused.from_t(Xt, jp.n, 5, 4))
     sj = np.asarray(sj)[0]
     X = torch.as_tensor(np.array(st.X))
-    launches = hbm_rtr.LAUNCHES
+    launches = profiling.launches()["k4"]
     X_t, s_t = hbm_rtr.rtr_solve_hbm(
         X, robot, torch.as_tensor(np.array(Pinv)), tp.edges,
         RTRParams(**DEMO), windows,
     )
-    assert hbm_rtr.LAUNCHES == launches  # CPU tensors: plain version
+    assert profiling.launches()["k4"] == launches  # CPU tensors: plain version
     s_t = s_t.numpy()
     assert s_t.shape == (hbm_rtr.STATS_LEN,)
     assert int(s_t[4]) == int(sj[4]) and int(s_t[5]) == int(sj[5])
@@ -348,9 +349,9 @@ def test_kernel_matches_plain_version_on_card():
     X = _on_manifold_state(gt, seed=4, dtype=torch.float32).cuda()
     Pinv = quadratic.precond_inverse(quadratic.precond_blocks(tp.edges, tp.n)).contiguous()
     for robot in range(tp.num_robots):
-        launches = hbm_rtr.LAUNCHES
+        launches = profiling.launches()["k4"]
         X_k, s_k = hbm_rtr.rtr_solve_hbm(X, robot, Pinv, tp.edges, RTRParams(**DEMO), windows)
-        assert hbm_rtr.LAUNCHES == launches + 1
+        assert profiling.launches()["k4"] == launches + 1
         X_p, s_p = hbm_rtr.rtr_solve_hbm_ref(X, robot, Pinv, tp.edges, RTRParams(**DEMO), windows)
         assert int(s_k[4]) == int(s_p[4]) and int(s_k[5]) == int(s_p[5])
         assert float(s_k[1] - s_k[0]) == pytest.approx(float(s_p[1] - s_p[0]), rel=1e-4)

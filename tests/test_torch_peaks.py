@@ -30,6 +30,7 @@ import torch
 from dpgo_ros_tpu_torch.ops import fused_rtr, peak_chains
 from dpgo_ros_tpu_torch.ops.peak_chains import LANES, NCHAIN, ROWS
 from dpgo_ros_tpu_torch.scripts import measure_peaks
+from dpgo_ros_tpu_torch.utils import profiling
 from torch_parity import load_jax_script
 
 REPO = Path(__file__).resolve().parent.parent
@@ -89,9 +90,9 @@ def test_wrapper_runs_plain_version_on_cpu_and_counts_no_launch(kind):
     x = torch.as_tensor(_inputs(kind))
     fused = peak_chains.chain_fused if kind == "chain" else peak_chains.chain_cml_fused
     ref = peak_chains.chain_ref if kind == "chain" else peak_chains.chain_cml_ref
-    before = peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES
+    before = profiling.launches()["k5"], profiling.launches()["k6"]
     out = fused(x, 7)
-    assert (peak_chains.LAUNCHES, peak_chains.CML_LAUNCHES) == before
+    assert (profiling.launches()["k5"], profiling.launches()["k6"]) == before
     assert out.shape == (ROWS, LANES) and out.dtype == torch.float32
     assert torch.equal(out, ref(x, 7))
     assert torch.equal(fused(x, 0), x.reshape(NCHAIN, ROWS, LANES).sum(0))

@@ -3,11 +3,12 @@
 1. ``PhaseTimer`` gives the JAX package's summary: the same phases, keys
    and call counts.
 2. ``device_trace(None)`` is a no-op; with a directory it writes one
-   Chrome trace of the body, ``annotate`` regions included. On the CPU it
+   Chrome trace of the body, ``span`` regions included. On the CPU it
    traces the host only and never touches CUDA (the padded session's
    synchronize is the card's alone).
 3. ``--profile_dir`` on the CPU writes a trace of the solve in the engine,
-   fused and async modes, and the run's summary is the one without it.
+   fused and async modes, and the span table beside it, and the run's
+   summary is the one without it.
 """
 
 import json
@@ -62,7 +63,7 @@ def test_device_trace_none_is_a_noop(tmp_path, monkeypatch):
 def test_device_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
     _no_cuda(monkeypatch)
     with profiling.device_trace(str(tmp_path / "prof"), "cpu"):
-        with profiling.annotate("dpgo_region"):
+        with profiling.span("dpgo_region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     files = os.listdir(tmp_path / "prof")
     assert len(files) == 1 and files[0].endswith(".json")
@@ -84,8 +85,10 @@ def test_profile_dir_writes_a_trace(tmp_path, monkeypatch, mode):
     base, _ = cli.run(flags)
     traced, _ = cli.run(flags + ["--profile_dir", str(tmp_path / "prof")])
     files = os.listdir(tmp_path / "prof")
-    assert len(files) == 1
-    events = json.loads((tmp_path / "prof" / files[0]).read_text())["traceEvents"]
+    traces = [f for f in files if f.startswith("trace_")]
+    # one Chrome trace, and the span table beside it
+    assert len(traces) == 1 and sorted(files) == sorted(traces + [f"spans_{os.getpid()}.json"])
+    events = json.loads((tmp_path / "prof" / traces[0]).read_text())["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
     drop = {"wall_time_sec"}
     assert {k: v for k, v in traced.items() if k not in drop} == {
@@ -157,9 +160,9 @@ def test_device_ms_still_raises_on_a_trace_short_of_its_launches(cuda_stubbed, m
     from dpgo_ros_tpu_torch.ops import hbm_rtr
 
     def launch_without_a_trace():  # a K4 launch whose interval the trace lost
-        hbm_rtr.LAUNCHES += 1
+        profiling.count("k4.launches")
 
-    monkeypatch.setattr(hbm_rtr, "LAUNCHES", hbm_rtr.LAUNCHES)
+    monkeypatch.setattr(profiling, "_counts", profiling.counters())
     with pytest.raises(RuntimeError, match="0 kernel intervals for 1 kernel launches"):
         roofline._device_ms(launch_without_a_trace)
     assert roofline._device_ms(lambda: None) == 0.0

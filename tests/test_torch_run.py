@@ -36,6 +36,7 @@ from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 from dpgo_ros_tpu_torch.ops import fused_rtr
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
+from dpgo_ros_tpu_torch.utils import profiling
 from torch_parity import noisy_lifted_gt, port_config, rel_err, world
 
 DEMO = dict(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
@@ -104,7 +105,7 @@ def test_run_cpu_matches_pallas_interpret(name, case):
     X_j, rel_j, s_j, h_j = _jax_run(jp, X, bank.numpy(), sched.numpy(), Pinv,
                                     adj, rel0, cost0, it_cap, o)
 
-    launches = fused_rtr.RUN_LAUNCHES
+    launches = profiling.launches()["k2"]
     X_t, rel_t, s_t, h_t = fused_rtr.rtr_run_fused(
         torch.as_tensor(X), bank, sched, torch.as_tensor(Pinv), tp.edges,
         RTRParams(**DEMO), adj=eng._adjf, rel0=torch.as_tensor(rel0), it0=0,
@@ -113,7 +114,7 @@ def test_run_cpu_matches_pallas_interpret(name, case):
         record=True, rgd_stepsize=o["rgd_stepsize"], offsets=eng._offsets,
         windows=eng._row_windows,
     )
-    assert fused_rtr.RUN_LAUNCHES == launches  # CPU tensors: plain version
+    assert profiling.launches()["k2"] == launches  # CPU tensors: plain version
     s_t = s_t.numpy()
     assert s_t.shape == (4,)
     assert int(s_t[1]) == int(s_j[1]) and int(s_t[2]) == int(s_j[2])
@@ -169,11 +170,11 @@ def test_make_fused_run_matches_jax_fused_runner():
     js, jrel, jev = je.make_fused_run(10, record=True)(je.initialize())
     tp = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cpu")
     te = RBCDEngine(tp, port_config(cfg))
-    launches = fused_rtr.RUN_LAUNCHES
+    launches = profiling.launches()["k2"]
     ts, trel, tev, tcg = te.make_fused_run(10, record=True, return_stats=True)(
         te.initialize(ylift=np.asarray(je.Ylift))
     )
-    assert fused_rtr.RUN_LAUNCHES == launches
+    assert profiling.launches()["k2"] == launches
     assert ts.weight_update_count == int(js.weight_update_count) == 2
     assert ts.iteration == int(js.iteration)
     np.testing.assert_array_equal(np.flatnonzero(tev.numpy()), np.flatnonzero(jev))
@@ -266,9 +267,9 @@ def test_run_kernel_matches_plain_version_on_card():
               last_wu=0, gnc_pending=False, it_cap=6, tol=0.0, gnc=False, inner=1,
               inner_tol=None, record=False, rgd_stepsize=0.0)
     args = (X, bank, sched, eng._solver_cache(tp.edges), tp.edges, RTRParams(**DEMO))
-    launches = fused_rtr.RUN_LAUNCHES
+    launches = profiling.launches()["k2"]
     X_k, rel_k, s_k = fused_rtr.rtr_run_fused(*args, windows=eng._row_windows, **kw)
-    assert fused_rtr.RUN_LAUNCHES == launches + 1
+    assert profiling.launches()["k2"] == launches + 1
     X_p, rel_p, s_p = fused_rtr.rtr_run_fused_ref(*args, **kw)
     assert int(s_k[1]) == int(s_p[1]) == 6
     assert rel_err(X_k.cpu(), X_p.cpu()) < 1e-3
