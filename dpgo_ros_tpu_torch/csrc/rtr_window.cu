@@ -103,10 +103,76 @@ __global__ void __launch_bounds__(THREADS, 1) rtr_window_kernel(WindowArgs a) {
   }
 }
 
+// A window row's launch, fixed once (dpgo_rtr_window_record): the
+// kernel of its (d, r), the cluster and its shared memory, the card.
+struct WindowRec {
+  WindowArgs a;  // X, X_out, stats and the workspace set per launch
+  void (*kern)(WindowArgs);
+  size_t smem;
+  int device, d, r, nc, P;
+};
+
+cudaLaunchConfig_t launch_config(const WindowRec& c, cudaLaunchAttribute* at, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c.nc, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = c.smem;
+  cfg.stream = s;
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = c.nc;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Picks the kernel of the record's (d, r) and checks, on the current
+// card, that one cluster of the record's shape fits (launch_cluster's
+// check, once per record).
 template <int DD, int RR>
-int launch_window(WindowArgs a, int nc, cudaStream_t s) {
-  const size_t smem = a.own_smem ? (size_t)(4 * own_floats(DD, RR, a.wk.P)) : 0;
-  return launch_cluster(rtr_window_kernel<DD, RR>, a, nc, smem, s);
+int record_window(WindowRec& c) {
+  c.kern = rtr_window_kernel<DD, RR>;
+  cudaError_t e;
+  if (c.nc > 8) {
+    e = cudaFuncSetAttribute((const void*)c.kern,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  e = cudaFuncSetAttribute((const void*)c.kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)c.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute at[1];
+  const cudaLaunchConfig_t cfg = launch_config(c, at, 0);
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(&active, (const void*)c.kern, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  return active < 1 ? -1 : 0;
+}
+
+// One launch of a record's kernel. The shared-memory limit is set at every
+// launch: records of other windows may have set another on the same kernel.
+int launch_record(const WindowRec& c, const WindowArgs& a, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute((const void*)c.kern,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute at[1];
+  const cudaLaunchConfig_t cfg = launch_config(c, at, s);
+  e = cudaLaunchKernelEx(&cfg, c.kern, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// f() with `device` the current card, then the caller's again.
+template <class F>
+int on_device(int device, F f) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e == cudaSuccess && prev != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int rc = f();
+  if (prev != device) cudaSetDevice(prev);
+  return rc;
 }
 
 }  // namespace
@@ -125,24 +191,33 @@ long long dpgo_rtr_window_smem_bytes(int d, int r, int P) {
   return own_in_smem(d, r, P) ? 4 * own_floats(d, r, P) : 0;
 }
 
-// Launches one window solve as a cluster of `nc` CTAs on `stream`; returns
-// a cudaError_t, or -1 when no such cluster fits on the card.
-int dpgo_rtr_window_solve(int d, int r, int nw, int ew, int nb, int D, int nc, int P,
-                          const float* X, const float* Pinv, const float* R, const float* t,
-                          const float* kw, const float* tw, const int* poses, const int* edges,
-                          const int* lsrc, const int* ldst, const int* lpull, const int* part,
-                          float* X_out, float* stats, float* work, int max_iterations,
-                          int max_tcg, float gradnorm_tol, float initial_radius,
-                          float max_radius, float tcg_kappa, float tcg_theta, void* stream) {
-  if (r < 1 || r > 8 || nw < 1 || nb < 1 || nb > nw || ew < 1 || (d != 2 && d != 3) || P < 1)
+// The launch record of one window row (ops/hbm_rtr.py keeps it in a
+// buffer of dpgo_rtr_window_record_bytes() bytes, one per row): its
+// kernel, sizes and tables (dpgo_rtr_window_record, once), the world's
+// operands and the solve's parameters (dpgo_rtr_window_bind, when they
+// change); a launch then passes only X, X_out, stats, the workspace and
+// the stream.
+long long dpgo_rtr_window_record_bytes() { return (long long)sizeof(WindowRec); }
+
+// Fills the record of a window of `nw` poses (`nb` of them the block) and
+// `ew` edges on `nc` CTAs with slices of at most `P` poses, for card
+// `device`, and checks there, once, that such a cluster fits; returns a
+// cudaError_t, or -1 when no such cluster fits on the card.
+int dpgo_rtr_window_record(void* rec, int device, int d, int r, int nw, int ew, int nb,
+                           int D, int nc, int P, const int* poses, const int* edges,
+                           const int* lsrc, const int* ldst, const int* lpull,
+                           const int* part) {
+  if (r < 1 || r > 8 || nw < 1 || nb < 1 || nb > nw || ew < 1 || (d != 2 && d != 3) || P < 1 ||
+      nc < 2 || nc > CLUSTER_MAX)
     return (int)cudaErrorInvalidValue;
-  WindowArgs a;
-  a.g.X = const_cast<float*>(X);
-  a.g.Pinv = Pinv;
-  a.g.R = R;
-  a.g.t = t;
-  a.g.kw = kw;
-  a.g.tw = tw;
+  WindowRec& c = *(WindowRec*)rec;
+  c = WindowRec{};
+  c.device = device;
+  c.d = d;
+  c.r = r;
+  c.nc = nc;
+  c.P = P;
+  WindowArgs& a = c.a;
   a.w.nw = nw;
   a.w.ew = ew;
   a.w.nb = nb;
@@ -154,12 +229,23 @@ int dpgo_rtr_window_solve(int d, int r, int nw, int ew, int nb, int D, int nc, i
   a.w.pull = lpull;
   a.w.lo = a.w.hi = 0;
   a.part = part;
-  a.wk = bind_work(work, d, r, nw, ew, P);
   a.own_smem = own_in_smem(d, r, P) ? 1 : 0;
-  a.own_global = a.wk.own;
   a.own_stride = own_floats(d, r, P);
-  a.X_out = X_out;
-  a.stats = stats;
+  c.smem = a.own_smem ? (size_t)(4 * a.own_stride) : 0;
+  return on_device(device, [&] { return DPGO_DISPATCH_DR(d, r, record_window, c); });
+}
+
+// Binds the world's operands and the solve's parameters into a record.
+void dpgo_rtr_window_bind(void* rec, const float* Pinv, const float* R, const float* t,
+                          const float* kw, const float* tw, int max_iterations, int max_tcg,
+                          float gradnorm_tol, float initial_radius, float max_radius,
+                          float tcg_kappa, float tcg_theta) {
+  WindowArgs& a = ((WindowRec*)rec)->a;
+  a.g.Pinv = Pinv;
+  a.g.R = R;
+  a.g.t = t;
+  a.g.kw = kw;
+  a.g.tw = tw;
   a.q.max_iterations = max_iterations;
   a.q.max_tcg = max_tcg;
   a.q.gradnorm_tol = gradnorm_tol;
@@ -167,8 +253,20 @@ int dpgo_rtr_window_solve(int d, int r, int nw, int ew, int nb, int D, int nc, i
   a.q.max_radius = max_radius;
   a.q.tcg_kappa = tcg_kappa;
   a.q.tcg_theta = tcg_theta;
-  cudaStream_t s = (cudaStream_t)stream;
-  return DPGO_DISPATCH_DR(d, r, launch_window, a, nc, s);
+}
+
+// Launches one window solve of a bound record on its card, in `stream`;
+// returns a cudaError_t.
+int dpgo_rtr_window_launch(const void* rec, const float* X, float* X_out, float* stats,
+                           float* work, void* stream) {
+  const WindowRec& c = *(const WindowRec*)rec;
+  WindowArgs a = c.a;
+  a.g.X = const_cast<float*>(X);
+  a.wk = bind_work(work, c.d, c.r, a.w.nw, a.w.ew, c.P);
+  a.own_global = a.wk.own;
+  a.X_out = X_out;
+  a.stats = stats;
+  return on_device(c.device, [&] { return launch_record(c, a, (cudaStream_t)stream); });
 }
 
 }  // extern "C"

@@ -152,10 +152,14 @@ def _library(source: Path) -> ctypes.CDLL:
                 fn.argtypes = [vp, vp, ci, ci, vp]
                 fn.restype = ci
         elif source == WINDOW_SOURCE:
-            lib.dpgo_rtr_window_solve.argtypes = (
-                [ci] * 8 + [vp] * 15 + [ci, ci] + [cf] * 5 + [vp]
-            )
-            lib.dpgo_rtr_window_solve.restype = ci
+            lib.dpgo_rtr_window_record_bytes.argtypes = []
+            lib.dpgo_rtr_window_record_bytes.restype = ctypes.c_longlong
+            lib.dpgo_rtr_window_record.argtypes = [vp] + [ci] * 9 + [vp] * 6
+            lib.dpgo_rtr_window_record.restype = ci
+            lib.dpgo_rtr_window_bind.argtypes = [vp] * 6 + [ci, ci] + [cf] * 5
+            lib.dpgo_rtr_window_bind.restype = None
+            lib.dpgo_rtr_window_launch.argtypes = [vp] * 6
+            lib.dpgo_rtr_window_launch.restype = ci
             lib.dpgo_rtr_window_workspace_floats.argtypes = [ci] * 6
             lib.dpgo_rtr_window_workspace_floats.restype = ctypes.c_longlong
             lib.dpgo_rtr_window_smem_bytes.argtypes = [ci] * 3

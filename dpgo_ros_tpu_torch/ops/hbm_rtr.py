@@ -33,7 +33,14 @@ the window's poses cut by :func:`partition`) for CUDA tensors and raises if
 it cannot be built or launched, or if no such cluster fits; for CPU tensors
 it runs the plain version :func:`rtr_solve_hbm_ref` (gather the local
 ``EdgeSet``, the ported ``rtr_solve`` on it, scatter the block back). No
-path falls back from one to the other.
+path falls back from one to the other. On both devices each row's first
+call builds its launch record (``Windows.records``; on the card it holds
+the kernel's record with the row's sizes and tables), and
+later calls check the operands again only where what the checks read has
+changed; κ_eff/τ_eff are computed once per weight set
+(``Windows.effective_weights``). Counters: ``k4.records`` per record
+built, ``k4.weights`` per κ_eff/τ_eff computed, ``k4.launches`` per CUDA
+launch.
 
 Stats vector (length 7): ``[f0, f, gn0, gn, TR iterations, tCG iterations,
 moved]``, the JAX kernel's first 7 entries. f is the window's LOCAL cost
@@ -120,6 +127,13 @@ class Windows:
     cluster: int  # CTAs of one launch
     part: torch.Tensor  # (m, cluster+1) int32 slice bounds
     slice_max: int  # most poses in one slice
+    # rtr_solve_hbm's launch record of each row it solved (_Record)
+    records: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
+    # the last effective_weights: (weight, mask, kappa, tau), their
+    # versions, κ_eff, τ_eff
+    _weights: tuple = dataclasses.field(default=(), init=False, repr=False,
+                                        compare=False)
 
     @property
     def num_robots(self) -> int:
@@ -153,6 +167,20 @@ class Windows:
                 f"{self.num_edges} edges, got {X.shape[0]} and {edges.num_edges}")
         if self.poses.device != X.device:
             raise ValueError(f"{who}: windows on {self.poses.device}, X on {X.device}")
+
+    def effective_weights(self, edges: EdgeSet) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``edges.effective_weights()``, computed once per weight set: kept
+        until ``weight``, ``mask``, ``kappa`` or ``tau`` is another tensor
+        or changed in place (its version), and held so that no other
+        tensor can take its id meanwhile."""
+        keys = (edges.weight, edges.mask, edges.kappa, edges.tau)
+        vers = tuple(t._version for t in keys)
+        held = self._weights
+        if not held or held[1] != vers or any(a is not b for a, b in zip(held[0], keys)):
+            kw, tw = edges.effective_weights()
+            profiling.count("k4.weights")
+            held = self._weights = (keys, vers, kw, tw)
+        return held[2], held[3]
 
     def robots_of(self, row: int) -> torch.Tensor:
         """The robots of one row (a view of ``row_robots``)."""
@@ -305,13 +333,49 @@ def rtr_solve_hbm(
     from :func:`prepare_windows` of the same problem. Returns (X_new,
     stats) as the module docstring says. The operand checks run on both
     devices; the float32 requirement only where the kernel runs.
+
+    Each row keeps a launch record (:class:`_Record`, in
+    ``windows.records``) built on its first call. The checks run in full
+    on that call and again whenever what they read has changed: X's shape,
+    dtype, device or layout, the params, or the identity or version of
+    another operand (the guard, one tuple compare).
     """
+    guard, held = _guard(X, Pinv, edges, params, windows)
+    rec = windows.records.get(robot) if type(robot) is int else None
+    fresh = rec is None or guard is None or rec.guard != guard
+    if fresh:
+        robot = _checked_robot(X, robot, Pinv, edges, params, windows)
+        rec = windows.records.get(robot)
+        if rec is None or rec.shape != X.shape[1:]:
+            rec = windows.records[robot] = _Record(windows, robot, X)
+        rec.guard, rec.held = guard, held
+    if rec.card is None:
+        return rtr_solve_hbm_ref(X, robot, Pinv, edges, params, windows)
+    return rec.launch(X, Pinv, edges, params, windows, fresh)
+
+
+def _guard(X, Pinv, edges, params, windows):
+    """(what the operand checks read, the tensors it names by id): X's
+    shape, dtype, device and layout, the params, and each other operand's
+    id and version; (None, None) where a tensor keeps no version (made in
+    inference mode), so such calls are checked every time."""
+    held = (Pinv, edges.R, edges.t, edges.src, edges.dst, edges.pull,
+            windows.offsets, edges.weight, edges.mask, edges.kappa, edges.tau)
+    try:
+        vers = [t._version for t in held]
+    except RuntimeError:
+        return None, None
+    return (X.shape, X.dtype, X.device, X.is_contiguous(), params,
+            *map(id, held), *vers), held
+
+
+def _checked_robot(X, robot, Pinv, edges, params, windows) -> int:
+    """Raise on operands the kernel cannot take; returns the row."""
     if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rtr_solve_hbm: unsupported device {X.device}")
-    on_card = X.device.type == "cuda"
-    _, kw, tw, _ = fused_rtr._checked_operands(
+    fused_rtr._checked_operands(
         "rtr_solve_hbm", X, None, Pinv, edges, params, windows.offsets,
-        torch.float32 if on_card else X.dtype,
+        torch.float32 if X.device.type == "cuda" else X.dtype,
     )
     windows.check("rtr_solve_hbm", X, edges)
     if isinstance(robot, bool):
@@ -321,39 +385,65 @@ def rtr_solve_hbm(
         raise ValueError(
             f"rtr_solve_hbm: robot {robot} outside 0..{windows.num_rows - 1}"
         )
-    if not on_card:
-        return rtr_solve_hbm_ref(X, robot, Pinv, edges, params, windows)
-    return _launch(X, robot, Pinv, edges, params, windows, kw, tw)
+    return robot
 
 
-def _launch(X, robot, Pinv, edges, params, windows, kw, tw):
-    n, r, dp1 = X.shape
-    d = dp1 - 1
-    poses, eids, lsrc, ldst, pull = windows.window(robot)
-    nc, P = windows.cluster, windows.slice_max
-    lib = fused_rtr._library(fused_rtr.WINDOW_SOURCE)
-    ws = lib.dpgo_rtr_window_workspace_floats(
-        d, r, windows.max_poses, windows.max_edges, nc, P)
-    X_out = X.clone()
-    stats = torch.empty(STATS_LEN, dtype=torch.float32, device=X.device)
-    work = torch.empty(ws, dtype=torch.float32, device=X.device)
-    p = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(X.device):  # launch on X's card, in its stream
-        rc = lib.dpgo_rtr_window_solve(
-            d, r, int(poses.shape[0]), int(eids.shape[0]),
-            int(windows.num_poses[robot]), int(pull.shape[1]), nc, P,
-            p(X), p(Pinv), p(edges.R), p(edges.t), p(kw), p(tw),
-            p(poses), p(eids), p(lsrc), p(ldst), p(pull), p(windows.part[robot]),
-            p(X_out), p(stats), p(work),
-            int(params.max_iterations), int(params.max_tcg_iterations),
-            float(params.gradnorm_tol), float(params.initial_radius),
-            float(params.max_radius), float(params.tcg_kappa),
-            float(params.tcg_theta),
-            ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
-        )
-    fused_rtr.check_launch("rtr_window_solve", rc, nc)
-    profiling.count("k4.launches")  # the CUDA kernel's (not the plain version's)
-    return X_out, stats
+class _Record:
+    """The launch of one window row for X of one (r, d+1), built once; on
+    the card it holds the row's table views (their pointers are in the
+    kernel's record), the workspace size and the kernel's record
+    (``csrc/rtr_window.cu``: sizes, tables, kernel and card, the cluster's
+    fit checked once), to which :meth:`launch` binds the world's operands
+    and the params when the checks have just run or κ_eff/τ_eff changed.
+    ``guard``/``held``: what the checks last passed, and the tensors it
+    names by id; ``kw``: the bound (κ_eff, τ_eff)."""
+
+    __slots__ = ("shape", "card", "views", "lib", "buf", "addr", "ws", "kw",
+                 "guard", "held")
+
+    def __init__(self, windows: Windows, row: int, X: torch.Tensor):
+        profiling.count("k4.records")
+        self.shape = X.shape[1:]
+        self.card = X.device.index if X.device.type == "cuda" else None
+        self.guard = self.held = None
+        self.kw = (None, None)
+        if self.card is None:
+            return
+        r, dp1 = self.shape
+        d = dp1 - 1
+        self.views = poses, eids, _, _, pull, _ = (*windows.window(row), windows.part[row])
+        nc, P = windows.cluster, windows.slice_max
+        self.lib = lib = fused_rtr._library(fused_rtr.WINDOW_SOURCE)
+        self.ws = lib.dpgo_rtr_window_workspace_floats(
+            d, r, windows.max_poses, windows.max_edges, nc, P)
+        self.buf = ctypes.create_string_buffer(lib.dpgo_rtr_window_record_bytes())
+        self.addr = ctypes.addressof(self.buf)
+        rc = lib.dpgo_rtr_window_record(
+            self.addr, self.card, d, r, int(poses.shape[0]), int(eids.shape[0]),
+            int(windows.num_poses[row]), int(pull.shape[1]), nc, P,
+            *(t.data_ptr() for t in self.views))
+        fused_rtr.check_launch("rtr_window_solve", rc, nc)
+
+    def launch(self, X, Pinv, edges, params, windows, bind):
+        kw, tw = windows.effective_weights(edges)
+        if bind or kw is not self.kw[0]:
+            self.kw = kw, tw
+            self.lib.dpgo_rtr_window_bind(
+                self.addr, Pinv.data_ptr(), edges.R.data_ptr(), edges.t.data_ptr(),
+                kw.data_ptr(), tw.data_ptr(),
+                int(params.max_iterations), int(params.max_tcg_iterations),
+                float(params.gradnorm_tol), float(params.initial_radius),
+                float(params.max_radius), float(params.tcg_kappa),
+                float(params.tcg_theta))
+        X_out = X.clone()
+        stats = torch.empty(STATS_LEN, dtype=torch.float32, device=X.device)
+        work = torch.empty(self.ws, dtype=torch.float32, device=X.device)
+        rc = self.lib.dpgo_rtr_window_launch(
+            self.addr, X.data_ptr(), X_out.data_ptr(), stats.data_ptr(),
+            work.data_ptr(), torch._C._cuda_getCurrentRawStream(self.card))
+        fused_rtr.check_launch("rtr_window_solve", rc)
+        profiling.count("k4.launches")  # the CUDA kernel's (not the plain version's)
+        return X_out, stats
 
 
 def window_edges(edges: EdgeSet, windows: Windows, row: int) -> EdgeSet:

@@ -21,6 +21,8 @@
 The CUDA kernel itself runs only on the card (``python3 chip_smoke.py``).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -300,13 +302,22 @@ def test_routing(sphere_cpu, monkeypatch, case):
 # ------------------------------------------------- 6. wrapper and build
 
 
-@pytest.mark.parametrize("bad", ["dtype", "device", "pinv_shape", "robot_range",
-                                 "robot_negative", "robot_bool", "other_world"])
+BAD_OPERANDS = ["dtype", "device", "pinv_shape", "robot_range", "robot_negative",
+                "robot_bool", "other_world"]
+QUICK = RTRParams(max_iterations=1, max_tcg_iterations=2, gradnorm_tol=0.5)
+
+
+@pytest.mark.parametrize("bad", BAD_OPERANDS + [f"warm-{b}" for b in BAD_OPERANDS])
 def test_wrapper_rejects_operands_the_kernel_cannot_take(sphere_cpu, bad):
+    """Each operand error raises on the call that has it; the warm cases
+    make a good call on the same windows first, so that the bad call meets
+    the row's launch record (robot_bool: the record of robot 1 == True)."""
+    warm, bad = bad.startswith("warm-"), bad.removeprefix("warm-")
     tp = sphere_cpu
     windows = hbm_rtr.prepare_windows(tp)
     X = _on_manifold_state(world("sphere256")[1], seed=3)
     Pinv = torch.eye(4, dtype=torch.float64).expand(tp.n, 4, 4).contiguous()
+    good = (X, 1 if bad == "robot_bool" else 0, Pinv, tp.edges, QUICK, windows)
     robot, err = 0, ValueError
     if bad == "dtype":
         X, err = X.float(), TypeError
@@ -321,11 +332,103 @@ def test_wrapper_rejects_operands_the_kernel_cannot_take(sphere_cpu, bad):
     elif bad == "robot_bool":
         robot, err = True, TypeError
     else:
-        data, _ = world("grid3d4")
-        windows = hbm_rtr.prepare_windows(
-            LiftedProblem.from_data(data, r=5, dtype=torch.float64, device="cpu"))
+        data, gt = world("grid3d4")
+        other = LiftedProblem.from_data(data, r=5, dtype=torch.float64, device="cpu")
+        windows = hbm_rtr.prepare_windows(other)
+        good = (_on_manifold_state(gt, seed=3), 0,
+                torch.eye(4, dtype=torch.float64).expand(other.n, 4, 4).contiguous(),
+                other.edges, QUICK, windows)
+    if warm:
+        hbm_rtr.rtr_solve_hbm(*good)
+        assert good[1] in windows.records
     with pytest.raises(err):
-        hbm_rtr.rtr_solve_hbm(X, robot, Pinv, tp.edges, RTRParams(**DEMO), windows)
+        hbm_rtr.rtr_solve_hbm(X, robot, Pinv, tp.edges, QUICK, windows)
+
+
+def test_one_launch_record_per_windows_and_row(sphere_cpu, monkeypatch):
+    """``k4.records`` goes up once per row over repeated calls, and again
+    for new windows of the same problem; the full operand checks run on a
+    row's first call and again only when what they read changed (another
+    Pinv, Pinv changed in place, other params, other weights), once."""
+    tp = sphere_cpu
+    X = _on_manifold_state(world("sphere256")[1], seed=3)
+    Pinv = torch.eye(4, dtype=torch.float64).expand(tp.n, 4, 4).contiguous()
+    checks = []
+    real = fused_rtr._checked_operands
+    monkeypatch.setattr(fused_rtr, "_checked_operands",
+                        lambda *a: checks.append(a[0]) or real(*a))
+    count = lambda: profiling.counters().get("k4.records", 0)
+    solve = lambda w, robot=0, P=Pinv, params=QUICK, e=tp.edges: hbm_rtr.rtr_solve_hbm(
+        X, robot, P, e, params, w)
+    w, before = hbm_rtr.prepare_windows(tp), count()
+    for _ in range(3):
+        for robot in (0, 1):
+            solve(w, robot)
+    assert count() == before + 2 and sorted(w.records) == [0, 1]
+    assert len(checks) == 2
+    solve(hbm_rtr.prepare_windows(tp))
+    assert count() == before + 3 and len(checks) == 3
+    P2 = Pinv.clone()
+    e2 = dataclasses.replace(tp.edges, weight=tp.edges.weight.clone())
+    for change in (lambda: solve(w, P=P2), lambda: (P2.mul_(1.0), solve(w, P=P2)),
+                   lambda: solve(w, params=RTRParams(max_iterations=1, max_tcg_iterations=3)),
+                   lambda: solve(w, e=e2)):
+        n = len(checks)
+        change()
+        assert len(checks) == n + 1
+    solve(w, e=e2)
+    solve(w, np.int64(0), e=e2)  # a row that is not an int is checked every call
+    assert len(checks) == n + 2 and count() == before + 3
+
+
+def test_operands_made_in_inference_mode_are_checked_every_call(sphere_cpu, monkeypatch):
+    """A tensor made in inference mode keeps no version, so the guard
+    cannot hold it: such calls run the full checks every time, and still
+    solve."""
+    tp = sphere_cpu
+    X = _on_manifold_state(world("sphere256")[1], seed=3)
+    checks = []
+    real = fused_rtr._checked_operands
+    monkeypatch.setattr(fused_rtr, "_checked_operands",
+                        lambda *a: checks.append(a[0]) or real(*a))
+    w = hbm_rtr.prepare_windows(tp)
+    with torch.inference_mode():
+        Pinv = torch.eye(4, dtype=torch.float64).expand(tp.n, 4, 4).contiguous()
+        out = [hbm_rtr.rtr_solve_hbm(X, 0, Pinv, tp.edges, QUICK, w) for _ in range(3)]
+    assert len(checks) == 3 and list(w.records) == [0]
+    assert all(torch.equal(o[0], out[0][0]) for o in out)
+
+
+@pytest.mark.parametrize("change", ["new_tensor", "weight_in_place", "mask_in_place"])
+def test_effective_weights_once_per_weight_set(sphere_cpu, change):
+    """``Windows.effective_weights`` equals ``edges.effective_weights()``,
+    recomputes (``k4.weights`` + 1) after a new weights tensor or an
+    in-place change to the weights or the mask, and not across calls with
+    the same tensors."""
+    tp = sphere_cpu
+    w = hbm_rtr.prepare_windows(tp)
+    e = dataclasses.replace(tp.edges, weight=tp.edges.weight.clone(),
+                            mask=tp.edges.mask.clone())
+    count = lambda: profiling.counters().get("k4.weights", 0)
+
+    def same(edges, recomputed):
+        n = count()
+        kw, tw = w.effective_weights(edges)
+        want = edges.effective_weights()
+        assert torch.equal(kw, want[0]) and torch.equal(tw, want[1])
+        assert count() == n + recomputed
+        return kw
+
+    kw = same(e, 1)
+    assert same(e, 0) is kw and same(dataclasses.replace(e), 0) is kw
+    if change == "new_tensor":
+        e = dataclasses.replace(e, weight=e.weight * 0.5)
+    elif change == "weight_in_place":
+        e.weight[::2] = 0.25
+    else:
+        e.mask[::3] = 0.0
+    assert same(e, 1) is not kw
+    same(e, 0)
 
 
 def test_build_all_lists_k4_and_a_failing_build_raises(tmp_path, monkeypatch):
@@ -358,3 +461,4 @@ def test_kernel_matches_plain_version_on_card():
         assert rel_err(X_k.cpu(), X_p.cpu()) < 1e-4
         out = tp.block_mask(robot)[:, 0, 0] == 0
         assert torch.equal(X_k[out], X[out])
+

@@ -15,7 +15,8 @@
    the CLI writing it.
 5. The benchmark's readers of the registry on summaries built by hand, and
    None on an empty registry.
-6. On the card: ``k4.launch`` calls equal ``k4.launches``.
+6. On the card: ``k4.launch`` calls equal ``k4.launches``; K4's launch
+   record gives a fresh launch's bits across weight changes.
 """
 
 import dataclasses
@@ -291,7 +292,9 @@ def test_profile_dir_writes_the_span_table(tmp_path):
             "k4.windows", "rbcd.finalize"} <= set(table)
     for row in table.values():
         assert row["self_s"] <= row["total_s"] + 1e-9 and row["idle_s"] is None
-    assert extras["timing_sec"]["counters"] == {}  # the CPU: no kernel launch, no CG
+    # the CPU: no kernel launch, no CG, no κ_eff (the plain version computes
+    # its own); K4's launch records, one per robot, are built on both devices
+    assert extras["timing_sec"]["counters"] == {"k4.records": 2}
 
 
 def _reader(name):
@@ -366,3 +369,44 @@ def test_k4_launch_spans_equal_k4_launches_on_the_card(card):
     s = profiling.summary()
     assert s["k4.launch"]["calls"] == profiling.launches()["k4"] - before == 9
     assert s["rbcd.step"]["calls"] == info["iterations"] == 9
+
+
+@pytest.mark.cuda
+def test_k4_record_path_equals_a_fresh_launch_on_the_card(card):
+    """For every robot, across weight changes between calls (none, in place,
+    a new tensor): K4's record path gives X_new and stats bit-identical to a
+    launch with freshly computed operands (new windows: a new launch record
+    and new κ_eff/τ_eff); ``k4.launch`` span calls equal ``k4.launches``."""
+    from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
+    from dpgo_ros_tpu_torch.ops import hbm_rtr, quadratic
+
+    data, _, _ = generate_world("sphere", n=600, num_robots=3, seed=3, outlier_ratio=0.2)
+    prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cuda")
+    eng = RBCDEngine(prob, AgentConfig(num_robots=3, dtype="float32"))
+    X = eng.initialize().X
+    edges = dataclasses.replace(prob.edges, weight=prob.edges.weight.clone())
+    Pinv = quadratic.precond_inverse(quadratic.precond_blocks(edges, prob.n)).contiguous()
+    params = RTRParams(max_iterations=3, max_tcg_iterations=50, gradnorm_tol=0.5)
+    windows = hbm_rtr.prepare_windows(prob)
+    for robot in range(prob.num_robots):
+        hbm_rtr.rtr_solve_hbm(X, robot, Pinv, edges, params, windows)
+    launches, records = profiling.launches()["k4"], profiling.counters()["k4.records"]
+    solves, moved = 0, set()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for change in ("none", "in_place", "new_tensor"):
+            if change == "in_place":
+                edges.weight[::7] *= 0.5
+            elif change == "new_tensor":
+                edges = dataclasses.replace(edges, weight=edges.weight * 0.9)
+            for robot in range(prob.num_robots):
+                X_r, s_r = hbm_rtr.rtr_solve_hbm(X, robot, Pinv, edges, params, windows)
+                fresh = hbm_rtr.prepare_windows(prob)
+                X_f, s_f = hbm_rtr.rtr_solve_hbm(X, robot, Pinv, edges, params, fresh)
+                assert torch.equal(X_r, X_f) and torch.equal(s_r, s_f), (change, robot)
+                moved.add((robot, float(s_r[1])))
+                solves += 2
+        torch.cuda.synchronize()
+    assert profiling.summary()["k4.launch"]["calls"] == solves
+    assert profiling.launches()["k4"] - launches == solves
+    assert profiling.counters()["k4.records"] - records == solves // 2  # the fresh windows'
+    assert len(moved) == solves // 2  # each weight set gave each robot another solve
