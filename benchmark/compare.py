@@ -1,4 +1,7 @@
-"""The comparison that decides ``correct``.
+"""The comparison that decides ``correct``, against the configuration's
+plain reference: the module ``harness.reference_of`` resolves
+(``references/<name>.py``), handed in. A number is read only where the
+module has the hook that gives it (``references/rbcd.py`` lists them).
 
 For every request of the window whose graph the reference solved whole (a
 sample of the graphs, drawn from the seed; L2 configurations):
@@ -20,20 +23,20 @@ layers under the answer, read from the program's own state X:
   anchoring of X redone in float64;
 
 and for a robust configuration, whose whole path the reference cannot
-reproduce, the stage-by-stage numbers of ``reference.follow`` (``init``,
+reproduce, the stage-by-stage numbers of ``follow`` (``init``,
 ``round_weights``, ``stretch``, ``stretch_cost``) on the first of them, and
 on each of them:
 
 * ``settle``: the final loop-closure weights that differ from the last
   weight round's, settled by the reference's rule on the request's own
-  trajectory (``reference.settle_gaps``).
+  trajectory (``settle_gaps``).
 
-For every request of the window that ran through the engine loop:
+For every request of the window whose runner records its schedule:
 
 * ``schedule``: how far its weight rounds and its stop depart from the
-  reference's rule, replayed on the relative changes the engine read after
-  each of its updates (``reference.Schedule.gaps``): a solve that skips a
-  round, makes one early or late, or stops early or late reads 1 or more.
+  reference's rule, replayed on the relative changes the program read after
+  each of its updates (``Schedule.gaps``): a solve that skips a round,
+  makes one early or late, or stops early or late reads 1 or more.
 
 Each number compared has its own limit (``limits/<cell>.json``), and a
 run compares only the numbers its cell's file names (all of them, each
@@ -43,11 +46,10 @@ from).
 
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict, List, Tuple
 
 import numpy as np
-
-from benchmark import reference
 
 
 def request_numbers(rec: Dict, ref: Dict) -> Dict[str, float]:
@@ -58,13 +60,15 @@ def request_numbers(rec: Dict, ref: Dict) -> Dict[str, float]:
     }
 
 
-def state_numbers(st: Dict, g: Dict, cfg: Dict) -> Dict[str, float]:
-    f64 = reference.state_cost(g, cfg["solver"], st["X"], st["w_pre"])
-    return {
-        "state_cost": abs(st["cost"] - f64) / abs(f64),
-        "rounding": float(np.max(np.abs(np.asarray(st["T"], np.float64)
-                                        - reference.rounded(st["X"])))),
-    }
+def state_numbers(st: Dict, g: Dict, cfg: Dict, plain: ModuleType) -> Dict[str, float]:
+    nums = {}
+    if hasattr(plain, "state_cost"):
+        f64 = plain.state_cost(g, cfg["solver"], st["X"], st["w_pre"])
+        nums["state_cost"] = abs(st["cost"] - f64) / abs(f64)
+    if hasattr(plain, "rounded"):
+        nums["rounding"] = float(np.max(np.abs(np.asarray(st["T"], np.float64)
+                                               - plain.rounded(st["X"]))))
+    return nums
 
 
 def _worst(acc: Dict[str, float], nums: Dict[str, float]) -> None:
@@ -74,7 +78,8 @@ def _worst(acc: Dict[str, float], nums: Dict[str, float]) -> None:
 
 
 def compare(records: List[Dict], states: List[Dict], refs: Dict[int, Dict],
-            graphs: List[Dict], cfg: Dict, limits: Dict) -> Tuple[Dict, int]:
+            graphs: List[Dict], cfg: Dict, limits: Dict,
+            plain: ModuleType) -> Tuple[Dict, int]:
     """(checks {name: {"value", "limit"}}, answers that failed a check)."""
     worst: Dict[str, float] = {}
     failed = set()
@@ -93,22 +98,22 @@ def compare(records: List[Dict], states: List[Dict], refs: Dict[int, Dict],
         nums = {}
         if rec["graph"] in refs:
             nums.update(request_numbers(rec, refs[rec["graph"]]))
-        if rec.get("sched") is not None:
+        if rec.get("sched") is not None and hasattr(plain, "Schedule"):
             if rule is None:
                 g = graphs[rec["graph"]]
-                rule = reference.Schedule(cfg["solver"], len(g["num_poses"]))
+                rule = plain.Schedule(cfg["solver"], len(g["num_poses"]))
             s = rec["sched"]
             nums["schedule"] = float(rule.gaps(s["rels"], s["rounds_at"], rec["iterations"]))
         if nums:
             judge(i, nums)
     for st in states:
         g = graphs[st["graph"]]
-        nums = state_numbers(st, g, cfg)
-        if st.get("stages") is not None:
+        nums = state_numbers(st, g, cfg, plain)
+        if st.get("stages") is not None and hasattr(plain, "settle_gaps"):
             rounds = st["stages"]["rounds"]
             w_round = (rounds[-1] if rounds else st["stages"]["start"])["weights"]
-            nums["settle"] = float(reference.settle_gaps(g, cfg["solver"], st["T"], w_round,
-                                                         st["w_final"]))
+            nums["settle"] = float(plain.settle_gaps(g, cfg["solver"], st["T"], w_round,
+                                                     st["w_final"]))
         nums.update(st.get("follow", {}))
         judge(st["index"], nums)
     checks = {k: {"value": v, "limit": float(limits.get(k, -1.0))} for k, v in worst.items()}

@@ -4,10 +4,10 @@
 
 For each seed, on the cell's graphs made from it as a run makes them:
 
-* the control: the plain reference computed in the control's precision
-  (TF32 products in float32, ``reference.Arith(control=True)``) in the
-  program's place, judged against the float64 reference by the cell's
-  numbers — the upper readings;
+* the control: the configuration's plain reference (``references/<name>.py``,
+  its ``solve`` with ``control=True``: for ``reference.py``, TF32 products in
+  float32) computed in the program's place, judged against the reference
+  in its own precision by the cell's numbers — the upper readings;
 * with ``--program 1``: a short run of the cell itself (its window
   ``--seconds``), whose checks are the program's lower readings; all seeds
   in one process, so that set-up is paid once for the kernels.
@@ -25,26 +25,27 @@ import time
 import numpy as np
 import torch
 
-from benchmark import compare, harness, reference, world
+from benchmark import compare, harness, world
 
 
 def control_numbers(cell: harness.Cell, seed: int, device) -> dict:
     t = cell.traffic
+    plain = cell.reference
     pool = int(t["pool"])
     gi = int(np.random.default_rng([seed, 13]).integers(pool))
     base = int(t["world_seed"]) + gi
     g = world.generate_world(**cell.config["world"], seed=base)
     cfg = cell.config["solver"]
-    Y = reference.lifting_matrix(base, int(cfg["relaxation_rank"]), g["R"].shape[-1])
+    Y = plain.lifting_matrix(base, int(cfg["relaxation_rank"]), g["R"].shape[-1])
     t0 = time.perf_counter()
-    ctl = reference.solve(g, cfg, Y, control=True, device=device)
+    ctl = plain.solve(g, cfg, Y, control=True, device=device)
     t1 = time.perf_counter()
-    nums = compare.state_numbers(ctl, g, cell.config)
-    if ctl["stages"] is not None:  # judged stage by stage, as the program's
-        nums.update(reference.follow(g, cfg, Y, ctl["stages"], device=device))
+    nums = compare.state_numbers(ctl, g, cell.config, plain)
+    if ctl.get("stages") is not None:  # judged stage by stage, as the program's
+        nums.update(plain.follow(g, cfg, Y, ctl["stages"], device=device))
         ref = None
     else:
-        ref = reference.solve(g, cfg, Y, device=device)
+        ref = plain.solve(g, cfg, Y, device=device)
         nums.update(compare.request_numbers(ctl, ref))
     t2 = time.perf_counter()
     return {"seed": seed, "graph": gi, "reading": "control", "numbers": nums,

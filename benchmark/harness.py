@@ -4,11 +4,14 @@ the comparison with the plain reference, and the result.
 Everything that belongs to one configuration, traffic mix or metric is a
 file found by its name in ``BENCHMARK.json``: ``configs/<config>.json``,
 ``traffic/<traffic>.json``, ``metrics/<metric>.py`` and
-``limits/<cell>.json``. The program (``dpgo_ros_tpu_torch``) is driven
-through the path its CLI takes for ``--mode engine`` and ``--mode fused``:
-``LiftedProblem.from_data`` → ``RBCDEngine`` → ``initialize`` → ``run`` (or
-``make_fused_run``) → ``finalize``. A request is one such solve, ending when
-the rounded trajectory is on the host.
+``limits/<cell>.json``; the traffic file's ``runner`` names
+``runners/<runner>.py``, the path a request takes through the program, and
+the configuration's ``reference`` names ``references/<reference>.py``, its
+plain reference (``references/rbcd.py`` where it names none). The program
+(``dpgo_ros_tpu_torch``) is driven as its CLI drives it:
+``LiftedProblem.from_data`` → ``RBCDEngine`` → ``initialize``, then the
+runner's ``solve`` and ``finalize``. A request is one such solve, ending
+when the rounded trajectory is on the host.
 """
 
 from __future__ import annotations
@@ -22,18 +25,20 @@ import math
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from types import ModuleType
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from benchmark import compare, gauge, reference, world
+from benchmark import compare, gauge, world
 from benchmark import trace as tr
 from benchmark.host_reads import ReadCounter
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "dpgo_ros_tpu")
+DEFAULT_REFERENCE = "rbcd"  # a configuration whose file names none: reference.py
 
 
 def load_json(path: Path):
@@ -58,6 +63,8 @@ class Cell:
     traffic: Dict
     limits: Dict
     metrics: List[Dict]  # the manifest's entries this run reports
+    runner: ModuleType  # runners/<traffic's runner>.py
+    reference: ModuleType  # references/<configuration's reference>.py
 
     @staticmethod
     def load(manifest: Dict, name: str, trace: bool) -> "Cell":
@@ -72,16 +79,47 @@ class Cell:
         limits = load_json(lim_path) if lim_path.exists() else {}
         kind = "per_layer" if trace else "end_to_end"
         metrics = [m for m in manifest[kind] if name in m.get("workloads", [name])]
-        return Cell(name, config, traffic, limits, metrics)
+        return Cell(name, config, traffic, limits, metrics, runner(traffic["runner"]),
+                    reference_of(config))
+
+
+def plugin(folder: str, name: str) -> ModuleType:
+    """``<folder>/<name>.py`` of the benchmark, loaded anew as a module of
+    its own."""
+    path = BENCH / folder / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"{folder}/{name}.py: no such file in the benchmark")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_{folder}_{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # where a dataclass of the module looks itself up
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(name: str) -> Callable:
     """``metrics/<name>.py``'s ``read``."""
-    spec = importlib.util.spec_from_file_location(
-        f"benchmark_metric_{name.replace('.', '_')}", BENCH / "metrics" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return plugin("metrics", name).read
+
+
+def runner(name: str) -> ModuleType:
+    """``runners/<name>.py``: the path of a request through the program.
+    It defines ``SOURCES`` (names of ``fused_rtr``'s ``*_SOURCE``
+    constants, built in set-up), ``RECORDS_SCHEDULE``, ``STEP`` (the
+    kernel wrapper a step calls, ``"module:function"``), ``solve(eng, st,
+    spans)`` → (state, updates or ticks, cost, tCG, schedule or None),
+    ``finalize(eng, st)`` → (T, state), ``captured(calls)`` (a context
+    that records its kernels' calls) and ``work(g, r, calls)`` → (work,
+    launches) under the keys the metric readers read, at 0 for no calls.
+    A run loads it once, in ``Cell.load``, and passes that module along."""
+    return plugin("runners", name)
+
+
+def reference_of(config: Dict) -> ModuleType:
+    """The configuration's plain reference, ``references/<name>.py`` by its
+    ``reference`` key: its declared numbers and its hooks
+    (``references/rbcd.py`` says which)."""
+    return plugin("references", config.get("reference", DEFAULT_REFERENCE))
 
 
 class Spans:
@@ -165,9 +203,9 @@ class Traffic:
         if t.get("loop") != "closed" or t.get("clients") != 1:
             raise ValueError("the generator runs a closed loop of one client")
         self.params = t
-        self.kind, self.runner = t["request"], t["runner"]
-        if self.kind not in ("cold", "warm") or self.runner not in ("engine", "fused"):
-            raise ValueError(f"request {self.kind!r} / runner {self.runner!r}")
+        self.kind, self.runner = t["request"], cell.runner
+        if self.kind not in ("cold", "warm"):
+            raise ValueError(f"request {self.kind!r}")
         wkw = dict(c["world"], **(world_override or {}))
         base = int(t["world_seed"])
         pool = int(t["pool"])
@@ -176,7 +214,8 @@ class Traffic:
         self.device, self.spans = device, spans
         self.prog = Program(c, self.graphs[0], device)
         d = self.graphs[0]["R"].shape[-1]
-        self.ylifts = [reference.lifting_matrix(base + k, self.prog.r, d) for k in range(pool)]
+        self.ylifts = [cell.reference.lifting_matrix(base + k, self.prog.r, d)
+                       for k in range(pool)]
         self.ylifts_t = [torch.as_tensor(y, dtype=self.prog.dtype, device=device)
                          for y in self.ylifts]
         self.step_rad = float(t.get("step_rad", gauge.STEP_RAD))
@@ -190,23 +229,6 @@ class Traffic:
 
     def graph_of(self, i: int) -> int:
         return int(self.order[i % len(self.order)])
-
-    def _solve(self, eng, st):
-        """(state, updates, cost, tCG, schedule): the engine's own record of
-        the relative changes it read after each update and of the updates
-        its weight rounds came before (None through the fused runner)."""
-        if self.runner == "engine":
-            with self.spans("run"):
-                st, info = eng.run(st)
-            h = info["history"]
-            sched = dict(rels=h["rel_change_robots"],
-                         rounds_at=[it for it, ev in h["event"] if ev == "UPDATE_WEIGHT"])
-            return st, info["iterations"], info["final_cost"], info["tcg_iterations"], sched
-        with self.spans("run"):
-            run = eng.make_fused_run(eng.config.max_iteration_number, return_stats=True)
-            st, tcg = run(st)
-            cost = float(st.cost)
-        return st, st.iteration, cost, tcg, None
 
     def request(self, i: int) -> Dict:
         """Request ``i``: its answer and what the comparison reads."""
@@ -226,20 +248,20 @@ class Traffic:
             stages = staged(eng, st) if self.robust else None
             counter = self.reads_in
             with counter if counter is not None else contextlib.nullcontext():
-                st, iters, cost, tcg, sched = self._solve(eng, st)
-            w_pre = st.weights
+                st, iters, cost, tcg, sched = self.runner.solve(eng, st, sp)
+            w_pre = getattr(st, "weights", None)  # a state without weights has none
             with sp("finalize"):
-                T, st = eng.finalize(st)
+                T, st = self.runner.finalize(eng, st)
         if stages is not None:
             stages["final"] = dict(X=st.X, weights=w_pre, iteration=int(iters))
         return dict(graph=gi, T=T, cost=float(cost), iterations=int(iters), tcg=int(tcg),
-                    sched=sched, X=st.X, w_pre=w_pre, w_final=st.weights,
+                    sched=sched, X=st.X, w_pre=w_pre, w_final=getattr(st, "weights", None),
                     stages=stages, spans=sp.take())
 
 
 def staged(eng, st) -> Dict:
     """The stage boundaries of a robust solve, as references to the
-    engine's own states (no copy): its start, and at each weight round the
+    program's own states (no copy): its start, and at each weight round the
     state before it and the weights it set."""
     stages = {"start": dict(X=st.X, weights=st.weights, iteration=st.iteration),
               "rounds": []}
@@ -254,69 +276,18 @@ def staged(eng, st) -> Dict:
     return stages
 
 
-@contextlib.contextmanager
-def captured_solves(calls: List):
-    """Records each K4 solve's (robot, stats) and each K2 launch's (it0,
-    stats) while the body runs: the kernels' own counters of TR and tCG
-    iterations, read after the traced stretch."""
-    from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr
-
-    k4, k2 = hbm_rtr.rtr_solve_hbm, fused_rtr.rtr_run_fused
-
-    def k4_wrapped(X, robot, *a, **kw):
-        out = k4(X, robot, *a, **kw)
-        calls.append(("k4", int(robot), out[1]))
-        return out
-
-    def k2_wrapped(*a, **kw):
-        out = k2(*a, **kw)
-        calls.append(("k2", int(kw.get("it0", 0)), out[2]))
-        return out
-
-    hbm_rtr.rtr_solve_hbm, fused_rtr.rtr_run_fused = k4_wrapped, k2_wrapped
-    try:
-        yield
-    finally:
-        hbm_rtr.rtr_solve_hbm, fused_rtr.rtr_run_fused = k4, k2
-
-
-def solve_work(g: Dict, r: int, calls: List) -> Dict:
-    """Per kernel, the least seconds that the traced solves' work needs at
-    the published peaks, from the graph's blocks and the kernels' counters."""
-    from benchmark import work
-
-    off = np.concatenate([[0], np.cumsum(g["num_poses"])])
-    src = off[g["src_robot"]] + g["src_frame"]
-    dst = off[g["dst_robot"]] + g["dst_frame"]
-    n, d, R = int(off[-1]), g["R"].shape[-1], len(g["num_poses"])
-    blocks = []
-    for k in range(R):
-        m = np.zeros(n, bool)
-        m[off[k]:off[k + 1]] = True
-        blocks.append(work.block_work(src, dst, m))
-    out = {"k4": 0.0, "k2": 0.0, "k4_tcg": 0, "k2_tcg": 0}
-    for kind, a, stats in calls:
-        s = stats.detach().cpu().numpy().astype(np.float64)
-        if kind == "k4":
-            nk, Ek, ns = blocks[a]
-            tri, tcg = int(s[4]), int(s[5])
-            t, _ = work.least_seconds(work.solve_bytes(nk, Ek, ns, r, d, stats=7),
-                                      work.rtr_flops(nk, Ek, r, d, tri, tcg))
-            out["k4"] += t
-            out["k4_tcg"] += tcg
-        else:  # one launch: steps a .. a+steps-1 on robots in turn; TR work uncounted
-            steps, tcg = int(s[2]), int(s[3])
-            rob = [(a + j) % R for j in range(steps)]
-            flops = sum(work.rtr_flops(blocks[k][0], blocks[k][1], r, d, 0, 0) for k in rob)
-            if steps:
-                flops += tcg * float(np.mean([work.tcg_flops(blocks[k][0], blocks[k][1], r, d)
-                                              for k in rob]))
-            C, D = r * (d + 1), d + 1
-            nbytes = 4 * (2 * n * C + n * D * D + 4) + work.edge_bytes(len(src), d)
-            t, _ = work.least_seconds(nbytes, flops)
-            out["k2"] += t
-            out["k2_tcg"] += tcg
-    return out
+def traced_work(runner: ModuleType, graphs: List[Dict], r: int,
+                per_request: List) -> Tuple[Dict, Dict]:
+    """The traced requests' (work, launches) under the cell's runner's
+    keys, summed over their ``(graph, calls)``."""
+    work, launches = runner.work(graphs[0], r, [])
+    for g, calls in per_request:
+        w, n = runner.work(g, r, calls)
+        for k in w:
+            work[k] += w[k]
+        for k in n:
+            launches[k] += n[k]
+    return work, launches
 
 
 @dataclasses.dataclass
@@ -350,8 +321,7 @@ def run_cell(manifest: Dict, name: str, seed: int, seconds: float, trace: bool,
     if on_card:
         from dpgo_ros_tpu_torch.ops import fused_rtr
 
-        fused_rtr.build_all([fused_rtr.WINDOW_SOURCE if traffic.runner == "engine"
-                             else fused_rtr.RUN_SOURCE])
+        fused_rtr.build_all([getattr(fused_rtr, src) for src in cell.runner.SOURCES])
     for j in range(int(t.get("warmup", 1))):  # every shape of the cell, before the window
         traffic.request(-1 - j)
     if on_card:
@@ -409,25 +379,26 @@ def run_cell(manifest: Dict, name: str, seed: int, seconds: float, trace: bool,
     refs = {}
     t_ref = time.perf_counter()
     solver = cell.config["solver"]
-    if traffic.robust:
+    plain = cell.reference
+    if traffic.robust and hasattr(plain, "follow"):
         # the reference follows the sampled solves stage by stage from the
         # program's own states (the reservoir's first, drawn from the seed)
         for st in states[:n_check]:
-            st["follow"] = reference.follow(traffic.graphs[st["graph"]], solver,
-                                            traffic.ylifts[st["graph"]], st["stages"],
-                                            device=dev)
-    else:
+            st["follow"] = plain.follow(traffic.graphs[st["graph"]], solver,
+                                        traffic.ylifts[st["graph"]], st["stages"],
+                                        device=dev)
+    elif not traffic.robust and hasattr(plain, "solve"):
         # the whole solve over a sample of the graphs the window solved
         solved = sorted({r["graph"] for r in records})
         sample = np.random.default_rng([seed, 13]).choice(
             solved, min(n_check, len(solved)), replace=False)
         for gi in sorted(int(x) for x in sample):
-            refs[gi] = reference.solve(traffic.graphs[gi], solver, traffic.ylifts[gi],
-                                       device=dev)
+            refs[gi] = plain.solve(traffic.graphs[gi], solver, traffic.ylifts[gi],
+                                   device=dev)
     log(f"reference: {len(refs) or min(n_check, len(states))} solve(s) in "
         f"{time.perf_counter() - t_ref:.3f} s")
     checks, failed = compare.compare(records, states, refs, traffic.graphs,
-                                     cell.config, cell.limits)
+                                     cell.config, cell.limits, plain)
     # every number the cell's limits name has to be read, and within its limit
     correct = bool(cell.limits) and all(
         k in checks and checks[k]["value"] is not None and checks[k]["value"] <= lim
@@ -500,22 +471,16 @@ def traced_stretch(traffic: Traffic, spans: Spans, dev, i0: int, log):
     with tr.padded_profile() as prof:
         for j in range(n):
             calls: List = []
-            with captured_solves(calls):
+            with traffic.runner.captured(calls):
                 rec = traffic.request(i0 + 1 + j)
             per_request.append((rec, calls))
     spans.on = False
     summary = tr.summarize(tr.chrome_events(prof))
     if summary is None:
         return reads, None
-    work = {"k4": 0.0, "k2": 0.0, "k4_tcg": 0, "k2_tcg": 0}
-    for rec, calls in per_request:
-        w = solve_work(traffic.graphs[rec["graph"]], traffic.prog.r, calls)
-        for k in work:
-            work[k] += w[k]
-    launches = {"k4": 0, "k2": 0}
-    for _, calls in per_request:
-        for kind, _, _ in calls:
-            launches[kind] += 1
+    work, launches = traced_work(
+        traffic.runner, traffic.graphs, traffic.prog.r,
+        [(traffic.graphs[rec["graph"]], calls) for rec, calls in per_request])
     summary.update(work=work, launches=launches, tcg=sum(r["tcg"] for r, _ in per_request),
                    iterations=sum(r["iterations"] for r, _ in per_request))
     log(f"trace: {n} requests, busy {summary['busy_s']:.4f} s of {summary['window_s']:.4f} s")

@@ -12,12 +12,22 @@ if str(ROOT) not in sys.path:
 
 from benchmark import harness  # noqa: E402
 
-# small worlds on the CPU (the program's plain versions): name -> overrides
-SMALL = {
-    "dpgo_demo.warm": ({"n": 100}, {}),
-    "dpgo_demo.warm_fused": ({"n": 100}, {}),
-    "dpgo_gnc_demo.cold": ({"n": 160}, {"robust_opt_inner_iters_per_robot": 5}),
-}
+SMALL_DIR = Path(__file__).resolve().parent / "small"
+
+
+def cells():
+    """Every cell of ``BENCHMARK.json``, by name."""
+    return sorted(w["name"] for w in harness.load_json(ROOT / "BENCHMARK.json")["workloads"])
+
+
+def small(cell):
+    """(world, solver) overrides that shrink ``cell`` for the program's
+    plain versions on the CPU: ``small/<cell>.json``."""
+    path = SMALL_DIR / f"{cell}.json"
+    if not path.is_file():
+        pytest.fail(f"{cell}: add benchmark/tests/small/{cell}.json, its shrink for the CPU")
+    s = harness.load_json(path)
+    return s.get("world", {}), s.get("solver", {})
 
 
 @pytest.fixture(scope="session")
@@ -26,7 +36,7 @@ def manifest():
 
 
 def small_run(manifest, cell, seed=2**31 + 5, seconds=0.3, trace=False):
-    world, solver = SMALL[cell]
+    world, solver = small(cell)
     return harness.run_cell(manifest, cell, seed, seconds, trace, device="cpu",
                             world_override=world, solver_override=solver,
                             log=lambda m: None)

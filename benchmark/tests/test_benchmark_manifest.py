@@ -3,6 +3,7 @@
 import json
 import re
 
+from benchmark import harness
 from benchmark.tests.conftest import ROOT
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -92,15 +93,15 @@ def test_configs_state_their_settings():
 
 def test_limits_are_positive_and_named():
     m = load()
-    known = {"traj", "cost", "state_cost", "rounding", "init", "stretch", "stretch_cost",
-             "round_weights"}
-    exact = {"schedule", "settle"}  # counts, compared exactly
+    cfgs = {c["name"]: json.loads((ROOT / c["file"]).read_text()) for c in m["configs"]}
     for w in m["workloads"]:
         lim = json.loads((ROOT / "benchmark" / "limits" / f"{w['name']}.json").read_text())
+        plain = harness.reference_of(cfgs[w["config"]])
+        known, exact = set(plain.NUMBERS), set(plain.EXACT)  # exact: counts
         assert lim and set(lim) <= known | exact
         assert all(v > 0 for k, v in lim.items() if k in known)
         assert all(v == 0 for k, v in lim.items() if k in exact)
-    engine = [w["name"] for w in m["workloads"] if not w["name"].endswith("fused")]
-    for name in engine:  # every engine cell holds its loop to the rule
-        lim = json.loads((ROOT / "benchmark" / "limits" / f"{name}.json").read_text())
-        assert "schedule" in lim
+        traffic = json.loads((ROOT / "benchmark" / "traffic" / f"{w['traffic']}.json")
+                             .read_text())
+        if harness.runner(traffic["runner"]).RECORDS_SCHEDULE:
+            assert "schedule" in lim  # a cell whose runner records it holds its loop to the rule

@@ -4,18 +4,19 @@ control and each fault a cell can have, run through the harness on the
 CPU (the look for a card skipped)."""
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from benchmark import compare, harness, reference, world
-from benchmark.tests.conftest import SMALL, small_run
+from benchmark.tests.conftest import ROOT, cells, small, small_run
 
 
 def config(manifest, cell):
     c = harness.Cell.load(manifest, cell, False)
-    w, s = SMALL[cell]
+    w, s = small(cell)
     return dict(c.config, world=dict(c.config["world"], **w),
                 solver=dict(c.config["solver"], **s)), c.limits
 
@@ -50,50 +51,45 @@ def test_world_is_the_programs_generator():
 
 def test_comparison_rejects_a_perturbed_trajectory_and_the_control(manifest):
     cfg, limits = config(manifest, "dpgo_demo.warm")
+    plain = harness.reference_of(cfg)
     g = world.generate_world(**cfg["world"], seed=3)
     Y = reference.lifting_matrix(3, 5, 3)
     ref = reference.solve(g, cfg["solver"], Y)
     ok = dict(ref, graph=0)
-    checks, failed = compare.compare([ok], [], {0: ref}, [g], cfg, limits)
+    checks, failed = compare.compare([ok], [], {0: ref}, [g], cfg, limits, plain)
     assert failed == 0
     bad = dict(ok, T=ref["T"] + 0.1)
-    checks, failed = compare.compare([bad], [], {0: ref}, [g], cfg, limits)
+    checks, failed = compare.compare([bad], [], {0: ref}, [g], cfg, limits, plain)
     assert failed == 1 and checks["traj"]["value"] > limits["traj"]
     ctl = reference.solve(g, cfg["solver"], Y, control=True)
     st = dict(ctl, index=0, graph=0)
-    checks, failed = compare.compare([dict(ctl, graph=0)], [st], {0: ref}, [g], cfg, limits)
+    checks, failed = compare.compare([dict(ctl, graph=0)], [st], {0: ref}, [g], cfg, limits,
+                                     plain)
     assert failed == 1
     assert any(c["value"] > c["limit"] for c in checks.values())
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL))
+@pytest.mark.parametrize("cell", cells())
 def test_a_sound_run_is_correct(manifest, cell):
     out = small_run(manifest, cell)
     assert out["correct"] is True and out["failed"] == 0, out["checks"]
     assert set(out["checks"]) == set(harness.Cell.load(manifest, cell, False).limits)
 
 
-def _unchanged_k4(monkeypatch):
-    from dpgo_ros_tpu_torch.ops import hbm_rtr
+def _unchanged_step(monkeypatch, runner):
+    """The kernel each step of the runner launches returns X unchanged."""
+    mod, fn = runner.STEP.split(":")
+    mod = importlib.import_module(mod)
+    real = getattr(mod, fn)
 
-    real = hbm_rtr.rtr_solve_hbm
-    monkeypatch.setattr(hbm_rtr, "rtr_solve_hbm",
-                        lambda X, *a, **k: (X.clone(), real(X, *a, **k)[1]))
-
-
-def _unchanged_k2(monkeypatch):
-    from dpgo_ros_tpu_torch.ops import fused_rtr
-
-    real = fused_rtr.rtr_run_fused
-
-    def run(X, *a, **k):
+    def step(X, *a, **k):
         out = real(X, *a, **k)
         return (X.clone(),) + tuple(out[1:])
 
-    monkeypatch.setattr(fused_rtr, "rtr_run_fused", run)
+    monkeypatch.setattr(mod, fn, step)
 
 
-def _half_the_edges(monkeypatch):
+def _half_the_edges(monkeypatch, runner):
     from dpgo_ros_tpu_torch.models.problem import LiftedProblem
 
     real = LiftedProblem.from_data
@@ -106,18 +102,25 @@ def _half_the_edges(monkeypatch):
     monkeypatch.setattr(LiftedProblem, "from_data", staticmethod(from_data))
 
 
-def _altered_answer(monkeypatch):
-    from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
+def _altered_answer(monkeypatch, runner):
+    """The answer the runner's ``finalize`` hands back, altered there (the
+    run loads the runner anew, so the loader plants it)."""
+    load = harness.runner
 
-    real = RBCDEngine.finalize
+    def altered(name):
+        mod = load(name)
+        real = mod.finalize
 
-    def finalize(self, st):
-        T, st = real(self, st)
-        T = T.copy()
-        T[len(T) // 2:, :, 3] += 0.05
-        return T, st
+        def finalize(eng, st):
+            T, st = real(eng, st)
+            T = T.copy()
+            T[len(T) // 2:, :, 3] += 0.05
+            return T, st
 
-    monkeypatch.setattr(RBCDEngine, "finalize", finalize)
+        mod.finalize = finalize
+        return mod
+
+    monkeypatch.setattr(harness, "runner", altered)
 
 
 def _no_weight_rounds(monkeypatch):
@@ -146,26 +149,40 @@ def _weights_not_settled(monkeypatch):
     monkeypatch.setattr(RBCDEngine, "finalize", finalize)
 
 
-FAULTS = {"step_returns_state_unchanged": None, "half_the_edges_left_out": _half_the_edges,
+FAULTS = {"step_returns_state_unchanged": _unchanged_step,
+          "half_the_edges_left_out": _half_the_edges,
           "answer_altered_where_produced": _altered_answer}
-# faults of the engine loop's schedule (the fused runner keeps no record of it)
-# and of the robust solve's weights
-LOOP_FAULTS = {"stops_early": (_stops_early, ["dpgo_demo.warm", "dpgo_gnc_demo.cold"]),
-               "no_weight_rounds": (_no_weight_rounds, ["dpgo_gnc_demo.cold"]),
-               "weights_not_settled": (_weights_not_settled, ["dpgo_gnc_demo.cold"])}
+
+
+def _loaded(cell):
+    return harness.Cell.load(harness.load_json(ROOT / "BENCHMARK.json"), cell, False)
+
+
+def _records_schedule(c):
+    return c.runner.RECORDS_SCHEDULE
+
+
+def _robust(c):
+    return c.config["solver"].get("robust_cost_type", "L2") != "L2"
+
+
+# faults of the loop's schedule, in a cell whose runner records it, and of
+# the weights, in a cell whose configuration is robust
+LOOP_FAULTS = {"stops_early": (_stops_early, _records_schedule),
+               "no_weight_rounds": (_no_weight_rounds, _robust),
+               "weights_not_settled": (_weights_not_settled, _robust)}
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("cell", sorted(SMALL))
+@pytest.mark.parametrize("cell", cells())
 def test_a_fault_makes_the_run_incorrect(manifest, monkeypatch, cell, fault):
-    plant = FAULTS[fault] or (_unchanged_k2 if cell.endswith("fused") else _unchanged_k4)
-    plant(monkeypatch)
+    FAULTS[fault](monkeypatch, harness.Cell.load(manifest, cell, False).runner)
     out = small_run(manifest, cell)
     assert out["correct"] is False and out["failed"] >= 1, out["checks"]
 
 
-@pytest.mark.parametrize("cell,fault", [(c, f) for f, (_, cells) in sorted(LOOP_FAULTS.items())
-                                        for c in cells])
+@pytest.mark.parametrize("cell,fault", [(c, f) for f, (_, due) in sorted(LOOP_FAULTS.items())
+                                        for c in cells() if due(_loaded(c))])
 def test_a_loop_fault_makes_the_run_incorrect(manifest, monkeypatch, cell, fault):
     LOOP_FAULTS[fault][0](monkeypatch)
     out = small_run(manifest, cell)
@@ -173,9 +190,14 @@ def test_a_loop_fault_makes_the_run_incorrect(manifest, monkeypatch, cell, fault
 
 
 def test_a_number_read_nowhere_fails_the_run(manifest, monkeypatch):
-    from benchmark import reference as ref
+    load = harness.reference_of
 
-    monkeypatch.setattr(ref, "follow", lambda *a, **k: {"init": 0.0})
+    def unfollowed(config):  # a reference whose robust solve reads the start alone
+        mod = load(config)
+        mod.follow = lambda *a, **k: {"init": 0.0}
+        return mod
+
+    monkeypatch.setattr(harness, "reference_of", unfollowed)
     out = small_run(manifest, "dpgo_gnc_demo.cold")
     assert out["correct"] is False and out["failed"] >= 1
     assert out["checks"]["stretch"]["value"] is None
