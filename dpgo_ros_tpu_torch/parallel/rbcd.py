@@ -498,39 +498,49 @@ class RBCDEngine:
         block's V is extrapolated as Retr(X_acc, β·proj(X_acc, X_acc −
         X_prev)) with β the fixed ``acceleration_beta`` or the θ-sequence's
         (θ − 1)/θ'. With ``acceleration_safeguard``, a step whose cost
-        f_acc exceeds the state's restarts: a second solve from X with
-        θ = 1 and V = X. Every ``restart_interval`` iterations θ resets.
+        f_acc exceeds the state's restarts: a second block solve from X
+        with θ = 1 and V = X, the world's cost of its result and one more
+        host read. Every ``restart_interval`` iterations θ resets.
 
-        Costs: f_acc is a full evaluation of X_acc over the world's edges,
-        and so is a restarted step's (one extra pass over the edges), so the
+        f_acc is a full evaluation of X_acc over the world's edges, so the
         safeguard compares two full evaluations; a cost carried as cost +
         (f − f0) drifts from one in fp32 and could flip the test at its
-        threshold. The safeguard's test is read in the step's one host read
-        (:meth:`_read`), a restarted step reads once more."""
+        threshold. The test is read in the step's one host read
+        (:meth:`_read`).
+
+        Spans (:mod:`utils.profiling`): ``rbcd.extrapolate`` (the tangent
+        projection, the retraction and the ``where`` that builds V),
+        ``rbcd.safeguard`` (f_acc and the test's flag, launched; the read
+        that carries it is the step's ``rbcd.read``), ``rbcd.restart`` (a
+        restarted step's second solve, its cost and its read)."""
         cfg = self.config
         theta_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * st.theta ** 2))
         beta = (cfg.acceleration_beta if cfg.acceleration_beta is not None
                 else (st.theta - 1.0) / theta_new)
         Z, stats = self._local_solve(st.V, e, mask, Pinv, **route)
         X_acc = torch.where(mask > 0, Z, st.X)
-        f_acc = quadratic.cost(X_acc, e)
-        Vk = stiefel.retract_polar_ns(
-            X_acc, beta * stiefel.proj_tangent(X_acc, mask * (X_acc - st.X_prev))
-        )
-        out = self._finish_step(st, X_acc, torch.where(mask > 0, Vk, st.V),
-                                stats, theta_new, f_acc, mask)
-        restarted = False
+        with profiling.span("rbcd.extrapolate"):
+            Vk = stiefel.retract_polar_ns(
+                X_acc, beta * stiefel.proj_tangent(X_acc, mask * (X_acc - st.X_prev))
+            )
+            V_new = torch.where(mask > 0, Vk, st.V)
         if cfg.acceleration_safeguard:
-            host = self._read(out[0], out[1], f_acc <= st.cost)
-            if not host[3][0]:
+            with profiling.span("rbcd.safeguard"):
+                f_acc = quadratic.cost(X_acc, e)
+                flags = (f_acc <= st.cost,)
+        else:
+            f_acc, flags = quadratic.cost(X_acc, e), ()
+        out = self._finish_step(st, X_acc, V_new, stats, theta_new, f_acc, mask)
+        host = self._read(out[0], out[1], *flags)
+        restarted = bool(flags) and not host[3][0]
+        if restarted:
+            with profiling.span("rbcd.restart"):
                 X_r, stats_r = self._local_solve(st.X, e, mask, Pinv, **route)
                 st_r, rc_r, k_r = self._finish_step(
                     st, X_r, X_r, stats_r, torch.ones_like(st.theta),
                     quadratic.cost(X_r, e), mask)
-                out, restarted = (st_r, rc_r, k_r + out[2]), True
+                out = (st_r, rc_r, k_r + out[2])
                 host = self._read(st_r, rc_r)
-        else:
-            host = self._read(out[0], out[1])
         st_new, _, k = out
         if (st.iteration + 1) % cfg.restart_interval == 0:
             st_new = st_new._replace(theta=torch.ones_like(st.theta))
@@ -676,7 +686,8 @@ class RBCDEngine:
         ``relative_change_tolerance`` and no weight round is pending, or
         ``max_iters`` updates ran. ``schedule`` replaces the rule's
         (:meth:`update_schedule`; indexed by the absolute iteration).
-        Returns (final_state, info) with the per-iteration history, the
+        Returns (final_state, info) with the per-iteration history (its
+        ``restarted``: whether each accelerated update restarted), the
         total tCG iterations (a restarted accelerated step counts both of
         its solves), the accelerated steps that restarted and, for robust
         costs, ``gnc_stats``."""
@@ -688,6 +699,7 @@ class RBCDEngine:
         history: Dict[str, list] = {
             "iteration": [], "cost": [], "rel_change": [],
             "rel_change_robots": [], "iter_time_sec": [], "event": [],
+            "restarted": [],
         }
         t_start = time.time()
         sched = self.update_schedule(state.iteration + max_iters, schedule)
@@ -719,6 +731,7 @@ class RBCDEngine:
             history["rel_change"].append(rc)
             history["rel_change_robots"].append(rel)
             history["iter_time_sec"].append(time.time() - t0)
+            history["restarted"].append(restarted)
             if callback is not None:
                 callback(it, state)
             if self._terminated(rel, state.weight_update_count):
