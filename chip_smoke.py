@@ -7,9 +7,10 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero; nothing is caught):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the five kernel libraries, K1 (csrc/rtr_block.cu), K2
-     (csrc/rtr_run.cu), K3 (csrc/asapp_tick.cu), K4 (csrc/rtr_window.cu)
-     and K5 + K6 (csrc/peak_chains.cu), one nvcc per source started
+  2. build the six kernel libraries, K1 (csrc/rtr_block.cu), K2
+     (csrc/rtr_run.cu), K3 (csrc/asapp_tick.cu), K4 (csrc/rtr_window.cu),
+     K5 + K6 (csrc/peak_chains.cu) and K7 (csrc/nesterov_extrapolate.cu),
+     one nvcc per source started
      together; print ptxas's report, and the registers and stack of each
      (d, r) instance of the cluster kernels K1–K4 (K3's also per
      preconditioner flag);
@@ -106,8 +107,8 @@ Phases (any failure exits nonzero; nothing is caught):
  16. time K5 and K6 against their plain versions at 2,000 steps;
  17. (after 11) drive dpgo_demo with ``--acceleration true`` in engine
      mode, fused mode and under the Parallel rule, the counters zeroed just
-     before each: K4 (K1 for Parallel) launches == updates + restarts and
-     no K2 launch, cost decrease, the final cost within rel 1e-4 of the
+     before each: K4 (K1 for Parallel) launches == updates + restarts, K7
+     launches == updates and no K2 launch, cost decrease, the final cost within rel 1e-4 of the
      JAX CLI's fp32 value and the update count within 2 of its;
  18. (after 6's fixed iterations) 30 accelerated RoundRobin steps with a
      periodic restart every 10, card fp32 (K4 on the auxiliary state V) vs
@@ -219,7 +220,14 @@ Phases (any failure exits nonzero; nothing is caught):
      36 K1 launches in ``micro_bench``, none in the prototype; the
      dpgo_demo solves at the JAX CLI's updates and costs, GNC recall ≥
      JAX's − 0.02, the multi-process meshes bit-identical; all ten in at
-     most 90 s.
+     most 90 s;
+ 38. (after 18) K7, the accelerated step's extrapolation, against its
+     plain version on the operands of 12 accelerated dpgo_demo updates on
+     the card (β 0.3 and the θ-sequence; 2,500 poses, r = 5, d = 3, a
+     500-pose block): X_acc bit-equal, V_new within 1e-5, V outside the
+     block untouched, a repeat bit-identical; K7 once per update, restarts
+     adding none; then timed (device µs per launch, per wrapper call, the
+     host's µs per call, the plain version's, the bound by bytes).
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it is the kernels JSON (name, route, source, replaced TPU kernel, launches
@@ -249,8 +257,11 @@ engine and fused RGD paths, with the one-step RGD launch's times on a
 robot window (``rgd_robot_ms`` and the plain, bound and call times beside
 it); K4's ``observability`` holds phase 32's readings; ``bench_launches``
 are K2's on the bench's fused routes and K4's on its engine route;
-``entry_point_launches`` are K1's and K4's in each of phase 37's scripts,
-and K4's ``first_trace`` holds phase 36's counts.
+``entry_point_launches`` are K1's, K4's and K7's in each of phase 37's
+scripts, and K4's ``first_trace`` holds phase 36's counts. K7's launches
+are the accelerated engine path's (``accel_launches`` per form, one per
+update), with ``host_us`` and ``plain_host_us``, the host's time per call
+of the kernel's wrapper and of the plain version.
 """
 
 from __future__ import annotations
@@ -286,6 +297,7 @@ from dpgo_ros_tpu_torch.ops import (
     fused_asapp,
     fused_rtr,
     hbm_rtr,
+    nesterov,
     peak_chains,
     quadratic,
     stiefel,
@@ -1629,10 +1641,11 @@ def phase_accel_main_path(tmp: str):
     """dpgo_demo with ``--acceleration true`` in engine mode, fused mode and
     under the Parallel rule, each with the counters zeroed just before: K4
     (K1 for Parallel) launched once per update and once more per restart,
-    no other kernel (the fused runner leaves K2, as JAX's does), cost
+    K7 once per update (a restart adds none), no other kernel (the fused
+    runner leaves K2, as JAX's does), cost
     decrease, the final cost within TOL_ACCEL_COST of the JAX CLI's and the
     update count within ACCEL_UPDATES_SLACK of its. Returns {form:
-    (launches, updates, restarts, solve seconds)}."""
+    (launches, updates, restarts, solve seconds, K7 launches)}."""
     forms = {"engine": [], "fused": ["--mode", "fused"],
              "parallel": ["--update_rule", "Parallel"]}
     out = {}
@@ -1649,13 +1662,13 @@ def phase_accel_main_path(tmp: str):
               f"restarts {restarts} ({100 * restarts / max(updates, 1):.1f} % of steps), "
               f"initial cost {extras['initial_cost']:.7g}, solve {solve:.4f} s; JAX CLI "
               f"{jax_updates} updates, {jax_cost}", flush=True)
-        _only(counts, **{kernel: updates + restarts})
+        _only(counts, **{kernel: updates + restarts, "k7": updates})
         assert summary["final_cost"] < extras["initial_cost"]
         assert abs(summary["final_cost"] - jax_cost) <= TOL_ACCEL_COST * jax_cost, form
         assert abs(updates - jax_updates) <= ACCEL_UPDATES_SLACK, (form, updates)
         assert math.isfinite(summary["ate_vs_ground_truth"])
         assert os.path.getsize(prefix + "_global.g2o") > 0
-        out[form] = (counts[kernel], updates, restarts, solve)
+        out[form] = (counts[kernel], updates, restarts, solve, counts["k7"])
     return out
 
 
@@ -1692,6 +1705,121 @@ def phase_accel_fixed_iterations() -> None:
           f"{ACCEL_RESTART_INTERVAL}th step; K4 launches {launched}", flush=True)
     assert len(h64) == len(h32) == ACCEL_STEPS and rel <= TOL_HIST
     assert launched == ACCEL_STEPS + i32["restarts"], launched
+
+
+# ---------------------------------------------------------------- K7
+
+# K7 against its plain version on the same CUDA tensors: X_acc, a select,
+# bit-equal; V_new within TOL_K7 abs (the same fp32 sums in another order,
+# with FMA; tests/test_torch_nesterov_extrapolate.py)
+TOL_K7 = 1e-5
+K7_UPDATES = 12  # accelerated dpgo_demo updates whose operands K7 is held on
+K7_REPS = 500
+
+
+def k7_flops(r: int, d: int) -> int:
+    """fp32 operations K7 takes for one pose inside the mask (a
+    multiply-add counted as 2): W = m·(X_acc − X_prev), YᵀW_Y, its sym,
+    W_Y − Y·sym, A and ‖A‖², the scaling, 20 Newton–Schulz steps (ZᵀZ,
+    3I − ZᵀZ, the product, the ½), p + β·W_p."""
+    proj = 2 * r * (d + 1) + 2 * r * d * d + 2 * d * d + 2 * r * d * d + r * d
+    start = 4 * r * d + r * d + 2 * r
+    ns = nesterov.NS_STEPS * (4 * r * d * d + d * d + r * d)
+    return proj + start + ns
+
+
+def _k7_calls(**config):
+    """The operands (Z, X, X_prev, V, mask, β) of each K7 call over
+    K7_UPDATES accelerated updates of the dpgo_demo engine on the card
+    (tolerance 0; ``config`` e.g. the θ-sequence), cloned, and the run's
+    restarts: K7 launched once per update, restarts adding none; the run's
+    launches are then taken off the counters."""
+    eng, st0 = _demo_engine(DPGO_DEMO, acceleration=True, relative_change_tolerance=0.0,
+                            **config)
+    calls, real = [], nesterov.extrapolate
+
+    def spy(*ops):
+        calls.append(tuple(t.clone() for t in ops))
+        return real(*ops)
+
+    before = _launches("k4"), _launches("k7")
+    with mock.patch.object(nesterov, "extrapolate", spy):
+        _, info = eng.run(st0, max_iters=K7_UPDATES)
+    assert len(calls) == info["iterations"] == K7_UPDATES, (len(calls), info["iterations"])
+    assert _launches("k7") - before[1] == K7_UPDATES
+    _set_launches(k4=before[0], k7=before[1])
+    return calls, info["restarts"]
+
+
+def phase_compare_extrapolate():
+    """K7 against its plain version on the same CUDA tensors, the operands
+    of the accelerated dpgo_demo engine's first K7_UPDATES updates, with
+    the fixed β (0.3) and with the θ-sequence: X_acc bit-equal, V_new
+    within TOL_K7, V's poses outside the mask untouched, a second launch
+    bit-identical. Returns (V_new's max abs error, the operands' shape)."""
+    before = _launches("k7")
+    err = 0.0
+    for name, config in (("beta 0.3", {}), ("theta-sequence", dict(acceleration_beta=None))):
+        calls, restarts = _k7_calls(**config)
+        errs = []
+        for ops in calls:
+            (xa, vn), (xa2, vn2) = nesterov.extrapolate(*ops), nesterov.extrapolate(*ops)
+            xr, vr = nesterov.extrapolate_ref(*ops)
+            inside = ops[4] > 0
+            assert torch.equal(xa, xr) and torch.equal(xa2, xa) and torch.equal(vn2, vn)
+            assert torch.equal(vn[~inside], ops[3][~inside])
+            errs.append(float((vn - vr).abs().max()))
+        print(f"K7 vs plain, {name}: {len(calls)} updates ({restarts} restarts), "
+              f"block {int((calls[0][4] > 0).sum())} of {calls[0][1].shape[0]} poses, "
+              f"X_acc bit-equal; V_new max abs error {max(errs):.3g} "
+              f"(per update {[f'{e:.2g}' for e in errs]}), beta "
+              f"{[round(float(c[5]), 6) for c in calls[:4]]}...", flush=True)
+        assert all(math.isfinite(e) and e <= TOL_K7 for e in errs), (name, errs)
+        err = max(err, max(errs))
+    _set_launches(k7=before)  # comparison launches
+    return err, list(calls[0][1].shape)
+
+
+def phase_timing_extrapolate():
+    """K7 on the last of the accelerated dpgo_demo operands: its device ms
+    per launch (torch.profiler), ms per wrapper call (CUDA events over
+    K7_REPS calls) and the host µs of a call (enqueue only), beside its
+    plain version's ms and host µs per call on the same CUDA tensors, and
+    the bound. Returns (kernel device ms, plain ms, bound (ms, by), ms per
+    call, host µs per call, the plain version's host µs per call)."""
+    calls, _ = _k7_calls()
+    ops = calls[-1]
+    before = _launches("k7")
+    kernel = lambda: nesterov.extrapolate(*ops)
+    plain = lambda: nesterov.extrapolate_ref(*ops)
+
+    def host_us(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return dt / reps * 1e6
+
+    k_ms = _time(kernel, K7_REPS)
+    p_ms = _time(plain, 50)
+    k2_ms = _time(kernel, K7_REPS)
+    dev_ms = _kernel_ms(kernel, "nesterov_extrapolate_kernel", K7_REPS)
+    k_host, p_host = host_us(kernel, K7_REPS), host_us(plain, 50)
+    n, r, dp1 = ops[1].shape
+    nb = int((ops[4] > 0).sum())
+    nbytes = 4 * (6 * n * r * dp1 + n + 1)  # Z, X, X_prev, V read, X_acc, V_new written; mask, β
+    flops = nb * k7_flops(r, dp1 - 1)
+    bnd = bound(nbytes, flops)
+    print(f"timing K7 at n {n}, r {r}, d {dp1 - 1}, block {nb}: device {dev_ms * 1e3:.3f} us "
+          f"per launch; {k_ms * 1e3:.3f}, {k2_ms * 1e3:.3f} us per wrapper call (CUDA "
+          f"events), host {k_host:.2f} us per call; plain {p_ms * 1e3:.3f} us per call, "
+          f"host {p_host:.2f} us; bound {bnd[0] * 1e3:.4f} us by {bnd[1]} ({nbytes} B, "
+          f"{flops:.4g} flop; all {n} poses {n * k7_flops(r, dp1 - 1):.4g} flop)", flush=True)
+    _set_launches(k7=before)  # timing launches
+    return dev_ms, p_ms, bnd, min(k_ms, k2_ms), k_host, p_host
 
 
 # ---------------------------------------------------------------- certificate
@@ -2754,7 +2882,8 @@ def phase_engine_rgd() -> dict:
               f"{pinfo['final_cost']:.7g}), max rel history deviation {rel:.2e}, "
               f"{secs:.3f} s", flush=True)
         assert info["iterations"] == ENGINE_RGD_UPDATES and info["tcg_iterations"] == 0
-        _only(counts, k2=info["iterations"] + info["restarts"])
+        _only(counts, k2=info["iterations"] + info["restarts"],
+              k7=info["iterations"] if config.get("acceleration") else 0)
         assert info["restarts"] == pinfo["restarts"] and rel <= TOL_RUN_COST, name
         assert info["final_cost"] < float(st0.cost)
         out[name] = dict(k2=counts["k2"], updates=info["iterations"],
@@ -3243,12 +3372,15 @@ def phase_entry_points(tmp: str) -> dict:
     k1["exp_spmd"] = sp["active_slot_steps"]
     _only(counts["exp_spmd"], k1=k1["exp_spmd"])
     # exp_e2e: K4 per RoundRobin update, K1 per Parallel one (+ restarts)
-    want = {"k1": 0, "k4": 0}
+    want = {"k1": 0, "k4": 0, "k7": 0}
     for preset, rows in res["exp_e2e"]["presets"].items():
         for r in rows:
             kernel = "k1" if r["rule"] == "Parallel" else "k4"
             assert r["launches"][kernel] == r["iterations"] + r["restarts"] > 0, r
             want[kernel] += r["iterations"] + r["restarts"]
+            k7 = r["iterations"] if r["acceleration"] else 0
+            assert r["launches"]["k7"] == k7, r
+            want["k7"] += k7
             if preset == "sphere":
                 assert r["iterations"] == DEMO_UPDATES, r
                 assert abs(r["final_cost"] - ONE_BLOCK_DEMO_COST) <= (
@@ -3266,9 +3398,10 @@ def phase_entry_points(tmp: str) -> dict:
     _only(counts["proto_chain_precond"])
     assert all(r["graph"] for r in res["micro_bench"]["looped_ms_per_op"].values())
     total_s = sum(secs.values())
-    print(f"entry points: {total_s:.1f} s in all; K1 {k1}; K4 {k4}", flush=True)
+    print(f"entry points: {total_s:.1f} s in all; K1 {k1}; K4 {k4}; K7 exp_e2e "
+          f"{want['k7']}", flush=True)
     assert total_s <= ENTRY_POINTS_S, secs
-    return {"k1": k1, "k4": k4, "seconds": secs}
+    return {"k1": k1, "k4": k4, "k7": {"exp_e2e": want["k7"]}, "seconds": secs}
 
 
 def _phase(name, fn, *args):
@@ -3306,6 +3439,8 @@ def main() -> int:
     _phase("fleet faults", phase_fleet_faults)
     _phase("fixed iterations", phase_fixed_iterations)
     _phase("accelerated fixed iterations", phase_accel_fixed_iterations)
+    k7_err, k7_shape = _phase("K7 vs plain", phase_compare_extrapolate)
+    k7 = _phase("K7 timing", phase_timing_extrapolate)
     cert = _phase("certificate", phase_certify)
     run_launches = _phase("fused main path", phase_fused_main_path, engine_summary)
     tick_launches, _, _ = _phase("async main path", phase_async_main_path)
@@ -3406,6 +3541,11 @@ def main() -> int:
           for name, k, replaces, cal in (
               ("peak_chain", "k5", "scripts/measure_peaks.py:60", cals[0]),
               ("peak_chain_cml", "k6", "scripts/measure_peaks.py:139", cals[1]))),
+        _kernel("nesterov_extrapolate", "dpgo_ros_tpu_torch/csrc/nesterov_extrapolate.cu",
+                "none (XLA: dpgo_ros_tpu/parallel/rbcd.py:494-509)", accel["engine"][4],
+                k7_err, *k7[:3], call_ms=k7[3], host_us=k7[4], plain_host_us=k7[5],
+                accel_launches={f: accel[f][4] for f in accel},
+                entry_point_launches=entry["k7"], launch_shapes=k7_shape),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

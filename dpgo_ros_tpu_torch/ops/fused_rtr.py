@@ -1,7 +1,7 @@
 """The RTR block solve (K1) and the multi-step runner (K2) as hand-written
 CUDA kernels, and the build of every kernel of the package (K3's wrapper is
 ``ops/fused_asapp.py``, K4's ``ops/hbm_rtr.py``, K5's and K6's
-``ops/peak_chains.py``).
+``ops/peak_chains.py``, K7's ``ops/nesterov.py``).
 
 K1 ports ``dpgo_ros_tpu/ops/fused_rtr.py::rtr_solve_fused`` (the Pallas
 kernel built by ``_make_rtr_kernel``): one masked RTR block solve per
@@ -73,7 +73,8 @@ RUN_SOURCE = _PKG / "csrc" / "rtr_run.cu"  # K2
 TICK_SOURCE = _PKG / "csrc" / "asapp_tick.cu"  # K3, wrapped in ops/fused_asapp.py
 WINDOW_SOURCE = _PKG / "csrc" / "rtr_window.cu"  # K4, wrapped in ops/hbm_rtr.py
 PEAK_SOURCE = _PKG / "csrc" / "peak_chains.cu"  # K5, K6, wrapped in ops/peak_chains.py
-ALL_SOURCES = (SOURCE, RUN_SOURCE, TICK_SOURCE, WINDOW_SOURCE, PEAK_SOURCE)
+EXTRAP_SOURCE = _PKG / "csrc" / "nesterov_extrapolate.cu"  # K7, wrapped in ops/nesterov.py
+ALL_SOURCES = (SOURCE, RUN_SOURCE, TICK_SOURCE, WINDOW_SOURCE, PEAK_SOURCE, EXTRAP_SOURCE)
 BUILD_DIR = _PKG.parent / "build" / "dpgo_ros_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -147,7 +148,10 @@ def _library(source: Path) -> ctypes.CDLL:
         path, _ = build(source)
         lib = ctypes.CDLL(str(path))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if source == PEAK_SOURCE:
+        if source == EXTRAP_SOURCE:
+            lib.dpgo_nesterov_extrapolate.argtypes = [ci] * 4 + [vp] * 9
+            lib.dpgo_nesterov_extrapolate.restype = ci
+        elif source == PEAK_SOURCE:
             for fn in (lib.dpgo_peak_chain, lib.dpgo_peak_chain_cml):
                 fn.argtypes = [vp, vp, ci, ci, vp]
                 fn.restype = ci

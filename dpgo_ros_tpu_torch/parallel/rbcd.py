@@ -63,6 +63,7 @@ from dpgo_ros_tpu_torch.ops import (
     fused_rtr,
     hbm_rtr,
     lie,
+    nesterov,
     quadratic,
     rounding,
     stiefel,
@@ -203,6 +204,12 @@ class RBCDEngine:
         """K2's incoming rel change for a one-step RGD launch (the engine
         computes its own in :meth:`_finish_step`)."""
         return torch.zeros(self.problem.num_robots, dtype=self.dtype, device=self.device)
+
+    @functools.cached_property
+    def _fixed_beta(self) -> torch.Tensor:
+        """(1,) the fixed ``acceleration_beta`` on the device, read there by
+        the accelerated step's extrapolation (K7)."""
+        return self._t([self.config.acceleration_beta])
 
     @functools.cached_property
     def _identity_pinv(self) -> torch.Tensor:
@@ -497,10 +504,12 @@ class RBCDEngine:
         not depend on its start), X_acc = the solved block over X, and the
         block's V is extrapolated as Retr(X_acc, β·proj(X_acc, X_acc −
         X_prev)) with β the fixed ``acceleration_beta`` or the θ-sequence's
-        (θ − 1)/θ'. With ``acceleration_safeguard``, a step whose cost
-        f_acc exceeds the state's restarts: a second block solve from X
-        with θ = 1 and V = X, the world's cost of its result and one more
-        host read. Every ``restart_interval`` iterations θ resets.
+        (θ − 1)/θ', both in ``ops/nesterov.py::extrapolate`` (K7 on the card,
+        one launch; its plain version on the CPU). With
+        ``acceleration_safeguard``, a step whose cost f_acc exceeds the
+        state's restarts: a second block solve from X with θ = 1 and V = X,
+        the world's cost of its result and one more host read. Every
+        ``restart_interval`` iterations θ resets.
 
         f_acc is a full evaluation of X_acc over the world's edges, so the
         safeguard compares two full evaluations; a cost carried as cost +
@@ -508,22 +517,20 @@ class RBCDEngine:
         threshold. The test is read in the step's one host read
         (:meth:`_read`).
 
-        Spans (:mod:`utils.profiling`): ``rbcd.extrapolate`` (the tangent
-        projection, the retraction and the ``where`` that builds V),
-        ``rbcd.safeguard`` (f_acc and the test's flag, launched; the read
-        that carries it is the step's ``rbcd.read``), ``rbcd.restart`` (a
-        restarted step's second solve, its cost and its read)."""
+        Spans (:mod:`utils.profiling`): ``rbcd.extrapolate`` (the
+        ``extrapolate`` call: X_acc's select, the tangent projection, the
+        retraction and V's select), ``rbcd.safeguard`` (f_acc and the
+        test's flag, launched; the read that carries it is the step's
+        ``rbcd.read``), ``rbcd.restart`` (a restarted step's second solve,
+        its cost and its read)."""
         cfg = self.config
         theta_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * st.theta ** 2))
-        beta = (cfg.acceleration_beta if cfg.acceleration_beta is not None
+        beta = (self._fixed_beta if cfg.acceleration_beta is not None
                 else (st.theta - 1.0) / theta_new)
         Z, stats = self._local_solve(st.V, e, mask, Pinv, **route)
-        X_acc = torch.where(mask > 0, Z, st.X)
         with profiling.span("rbcd.extrapolate"):
-            Vk = stiefel.retract_polar_ns(
-                X_acc, beta * stiefel.proj_tangent(X_acc, mask * (X_acc - st.X_prev))
-            )
-            V_new = torch.where(mask > 0, Vk, st.V)
+            X_acc, V_new = nesterov.extrapolate(
+                Z, st.X, st.X_prev, st.V, mask.reshape(-1), beta)
         if cfg.acceleration_safeguard:
             with profiling.span("rbcd.safeguard"):
                 f_acc = quadratic.cost(X_acc, e)

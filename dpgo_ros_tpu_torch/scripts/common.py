@@ -86,7 +86,7 @@ def emit(obj: dict, out: Optional[str] = None) -> dict:
 
 
 def counts() -> dict:
-    """Every kernel wrapper's launch counter (K1–K6)."""
+    """Every kernel wrapper's launch counter (K1–K7)."""
     return profiling.launches()
 
 

@@ -230,12 +230,12 @@ def counters() -> Dict[str, int]:
     return dict(_counts)
 
 
-KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6")
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7")
 
 
 def launches() -> Dict[str, int]:
     """Each kernel's CUDA launches (not its plain version's): the
-    counters ``k1.launches`` … ``k6.launches``, keyed ``k1`` … ``k6``."""
+    counters ``k1.launches`` … ``k7.launches``, keyed ``k1`` … ``k7``."""
     return {k: _counts.get(f"{k}.launches", 0) for k in KERNELS}
 
 

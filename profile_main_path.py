@@ -16,7 +16,8 @@ for ``async`` the ``--demo asapp_demo`` path on the same world; with
 the large-world engine route, ``--synthetic sphere --synthetic_n 50000
 --num_robots 16`` with Odometry init, RoundRobin and at most 10 sweeps;
 with ``--acceleration`` the dpgo_demo path with ``--acceleration true``,
-one K4 (or K1) launch per update and per restart in either mode)
+one K4 (or K1) launch per update and per restart in either mode, and one
+K7 launch per update)
 once to build the kernels and load the CUDA libraries, then once more
 under ``torch.profiler``.
 From the profiled run's trace it prints:
@@ -27,7 +28,8 @@ From the profiled run's trace it prints:
 * the device time of the windowed block solve (K4, engine mode's
   RoundRobin updates), of the colour-window block solve (K1, the Parallel
   rule's updates), of the multi-step kernel (K2, fused mode) and of the
-  ASAPP tick kernel (K3, async mode), each with its share of busy time,
+  ASAPP tick kernel (K3, async mode) and of the accelerated step's
+  extrapolation (K7, with ``--acceleration``), each with its share of busy time,
   its launches and its mean per launch;
 * the idle share, 1 − busy / wall, where wall is the host time of the
   profiled ``cli.run`` call;
@@ -57,7 +59,7 @@ from dpgo_ros_tpu_torch.scripts.roofline import DEVICE_CATS, busy_us
 from dpgo_ros_tpu_torch.utils import profiling
 
 KERNELS = {"k1": "rtr_block_kernel", "k2": "rtr_run_kernel", "k3": "asapp_tick_kernel",
-           "k4": "rtr_window_kernel"}
+           "k4": "rtr_window_kernel", "k7": "nesterov_extrapolate_kernel"}
 WORLDS = {
     "sphere2500": ["--synthetic", "sphere", "--synthetic_n", "2500"],
     # chip_smoke.py's large-world main path
@@ -153,6 +155,8 @@ def main(argv=None) -> int:
         # restart of an accelerated one
         want["k1" if a.update_rule == "Parallel" else "k4"] = (
             extras["block_updates"] + extras["restarts"])
+        if a.acceleration:  # K7 once per accelerated update
+            want["k7"] = extras["block_updates"]
     elif a.mode == "fused":
         want["k2"] = 1
     else:
