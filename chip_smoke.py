@@ -297,6 +297,7 @@ from dpgo_ros_tpu_torch.ops import (
     fused_asapp,
     fused_rtr,
     hbm_rtr,
+    kernels,
     nesterov,
     peak_chains,
     quadratic,
@@ -355,8 +356,8 @@ TOL_TICK_X, TOL_TICK_MOVED = 1e-4, 1e-3
 
 # template instances per cluster kernel: 16 (d, r) pairs, K3's twice (with
 # and without the preconditioner)
-CLUSTER_INSTANCES = {fused_rtr.SOURCE: 16, fused_rtr.RUN_SOURCE: 16,
-                     fused_rtr.TICK_SOURCE: 32, fused_rtr.WINDOW_SOURCE: 16}
+CLUSTER_INSTANCES = {kernels.BLOCK_SOURCE: 16, kernels.RUN_SOURCE: 16,
+                     kernels.TICK_SOURCE: 32, kernels.WINDOW_SOURCE: 16}
 
 
 def phase_build() -> dict:
@@ -364,7 +365,7 @@ def phase_build() -> dict:
     ptxas register, stack and spill report of each. Returns {each cluster
     kernel's source stem: ptxas_instances}."""
     t = time.time()
-    built = fused_rtr.build_all()
+    built = kernels.build_all()
     print(f"build: {', '.join(p.name for p, _ in built)} in "
           f"{time.time() - t:.1f} s", flush=True)
     for path, log in built:
@@ -372,7 +373,7 @@ def phase_build() -> dict:
             if any(w in line for w in ("Compiling entry", "registers", "spill", "stack")):
                 print(f"  ptxas {path.stem}: " + line.strip())
     out = {}
-    for src, (path, log) in zip(fused_rtr.ALL_SOURCES, built):
+    for src, (path, log) in zip(kernels.ALL_SOURCES, built):
         if src in CLUSTER_INSTANCES:
             out[src.stem] = ptxas_instances(log)
             print(f"ptxas {src.stem} per (d, r) instance: "
@@ -408,7 +409,7 @@ def launch_shape(w: hbm_rtr.Windows, d: int, r: int, tick: bool = False) -> dict
     if tick:
         return {"clusters": w.num_rows, "cluster": w.cluster, "threads": 256,
                 "slice_max": w.slice_max, "smem_bytes_per_cta": 4 * (d + 1) ** 2 * w.slice_max}
-    lib = fused_rtr._library(fused_rtr.WINDOW_SOURCE)
+    lib = kernels.load(kernels.WINDOW_SOURCE, hbm_rtr.ENTRIES)
     return {"cluster": w.cluster, "threads": 256, "slice_max": w.slice_max,
             "smem_bytes_per_cta": int(lib.dpgo_rtr_window_smem_bytes(d, r, w.slice_max))}
 
@@ -3499,7 +3500,7 @@ def main() -> int:
                 spmd_slot_shape=spmd_timing["shape"], spmd=spmd_main, spmd_gnc=spmd_gnc,
                 spmd_two_processes=spmd_multi, spmd_profile=spmd_timing["profile"],
                 spmd_slot_checks=spmd_err, entry_point_launches=entry["k1"],
-                launch_shapes=k1_shapes, ptxas=ptxas[fused_rtr.SOURCE.stem]),
+                launch_shapes=k1_shapes, ptxas=ptxas[kernels.BLOCK_SOURCE.stem]),
         _kernel("rtr_run_fused", "dpgo_ros_tpu_torch/csrc/rtr_run.cu",
                 "dpgo_ros_tpu/ops/fused_rtr.py:1458", run_launches, run_err, *k2,
                 call_ms=k2_call,
@@ -3516,14 +3517,14 @@ def main() -> int:
                 rgd_launch_shapes=rgd_shapes,
                 bench_launches={k: v["k2"] for k, v in bench_launches.items() if v["k2"]},
                 launch_shapes=run_shapes,
-                ptxas=ptxas[fused_rtr.RUN_SOURCE.stem]),
+                ptxas=ptxas[kernels.RUN_SOURCE.stem]),
         _kernel("asapp_tick_fused", "dpgo_ros_tpu_torch/csrc/asapp_tick.cu",
                 "dpgo_ros_tpu/ops/fused_asapp.py:200", tick_launches, tick_err, *k3,
                 tick_ms=tick_ms, call_ms=k3_call, launch_shapes=tick_shapes,
-                ptxas=ptxas[fused_rtr.TICK_SOURCE.stem]),
+                ptxas=ptxas[kernels.TICK_SOURCE.stem]),
         _kernel("rtr_window_solve", "dpgo_ros_tpu_torch/csrc/rtr_window.cu",
                 "dpgo_ros_tpu/ops/hbm_rtr.py:257", window_launches, window_err, *k4,
-                launch_shapes=window_shapes, ptxas=ptxas[fused_rtr.WINDOW_SOURCE.stem],
+                launch_shapes=window_shapes, ptxas=ptxas[kernels.WINDOW_SOURCE.stem],
                 call_ms=k4_call, k1_window_ms=k1_window_ms,
                 accel_launches={f: accel[f][0] for f in ("engine", "fused")},
                 fleet_launches={d: f["k4"] for d, f in fleets.items()},

@@ -776,9 +776,9 @@ def _solve_fleet(data, cfg, device, dataset, checkpoint_dir=None, resume=None,
 
     ctl = DistributedController(data, cfg, dataset=dataset, device=device)
     if device.type == "cuda" and ctl.config.solver == SolverMethod.RTR:
-        from dpgo_ros_tpu_torch.ops import fused_rtr
+        from dpgo_ros_tpu_torch.ops import hbm_rtr, kernels
 
-        fused_rtr._library(fused_rtr.WINDOW_SOURCE)
+        kernels.load(kernels.WINDOW_SOURCE, hbm_rtr.ENTRIES)
     if resume is not None:
         ctl.restore_checkpoint(resume)
         print(f"fleet resumed warm-start caches from {resume}", file=sys.stderr)
@@ -858,7 +858,7 @@ def _solve_spmd(a, cfg, eng, st_init, mesh, mgr=None, resume=None, snap=None):
     tables and, on the card, the kernels are built here, in the init
     phase, from the initial state ``st_init``. ``snap`` writes the gathered
     trajectory and weights after each launch it has one due at."""
-    from dpgo_ros_tpu_torch.ops import fused_rtr, quadratic
+    from dpgo_ros_tpu_torch.ops import fused_rtr, kernels, quadratic
     from dpgo_ros_tpu_torch.parallel import spmd
     from dpgo_ros_tpu_torch.utils import checkpoint as ckpt
     from dpgo_ros_tpu_torch.utils.config import RobustCostType
@@ -876,7 +876,10 @@ def _solve_spmd(a, cfg, eng, st_init, mesh, mgr=None, resume=None, snap=None):
     M = sp.M
     st_first, step = spmd.build_spmd_step(sp, cfg, mesh)
     if mesh.device.type == "cuda" and step.use_kernel:
-        fused_rtr._library(fused_rtr.RUN_SOURCE if step.S > 1 else fused_rtr.SOURCE)
+        if step.S > 1:
+            kernels.load(kernels.RUN_SOURCE, fused_rtr.RUN_ENTRIES)
+        else:
+            kernels.load(kernels.BLOCK_SOURCE, fused_rtr.BLOCK_ENTRIES)
 
     def solve(st0) -> _Solved:
         st = st_first

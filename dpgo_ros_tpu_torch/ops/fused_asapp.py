@@ -10,14 +10,15 @@ its own view. On the card each robot's tick is one thread-block cluster on
 the robot's window (``hbm_rtr.prepare_windows``: its block, the edges that
 touch it, the separators at their far ends), all robots in one launch. The
 kernel source ``csrc/asapp_tick.cu`` says what bounds it and how it is
-laid out; it is built with the package's other kernels by
-``fused_rtr.build_all()``.
+laid out; ``ops/kernels.py`` builds it with the package's other kernels.
 
 :func:`asapp_tick_fused` launches K3 for CUDA tensors (the windows are
 then required) and raises if it cannot be built or launched; for CPU
 tensors it runs the plain version :func:`asapp_tick_fused_ref`
 (full-width, the same function). No path falls back from one to the
 other. :func:`asapp_tick_window_ref` is the plain tick on the windows.
+Given windows, its operand checks rerun only when what they read has
+changed (``kernels.guard``).
 
 A run's stop test can stay on the device: with ``live`` (an int32 scalar
 tensor) a tick whose flag is 0 returns X unchanged and the movement
@@ -33,24 +34,30 @@ as stale within the tick.
 
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_float, c_int, c_longlong, c_void_p
 from typing import Optional, Tuple
 
 import torch
 
-from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, quadratic, stiefel
+from dpgo_ros_tpu_torch.ops import hbm_rtr, kernels, quadratic, stiefel
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet
 from dpgo_ros_tpu_torch.utils import profiling
 
 
-def _checked(X, hist, masks, Pinv, edges, delays, offsets, fdt):
-    """Raise on operands the kernel cannot take; returns (κ_eff, τ_eff)."""
+# K3's C entries (csrc/asapp_tick.cu), as kernels.load declares them
+ENTRIES = {
+    "dpgo_asapp_tick": ([c_int] * 12 + [c_void_p] * 17 + [c_float] + [c_void_p] * 4, c_int),
+    "dpgo_asapp_tick_workspace_floats": ([c_int] * 7, c_longlong),
+}
+
+
+def _check(X, hist, masks, Pinv, edges, delays, offsets, fdt, live, rel) -> None:
+    """Raise on operands the kernel cannot take, the stop flag and the
+    movement it keeps included."""
     who = "asapp_tick_fused"
-    n, r, dp1 = X.shape
-    if dp1 - 1 not in (2, 3):
-        raise ValueError(f"{who}: d={dp1 - 1} (kernel takes 2 or 3)")
-    if not 1 <= r <= fused_rtr.MAX_RANK:
-        raise ValueError(f"{who}: r={r} (kernel takes 1..{fused_rtr.MAX_RANK})")
+    kernels.checked_operands(who, X, Pinv, edges, offsets, fdt, hist=hist, masks=masks,
+                             delays=delays)
+    n = X.shape[0]
     if hist.dim() != 4 or hist.shape[1:] != X.shape:
         raise ValueError(f"{who}: hist shape {tuple(hist.shape)} for X {tuple(X.shape)}")
     R = masks.shape[0]
@@ -59,26 +66,16 @@ def _checked(X, hist, masks, Pinv, edges, delays, offsets, fdt):
             f"{who}: masks {tuple(masks.shape)}, delays {tuple(delays.shape)}, "
             f"offsets {tuple(offsets.shape)} for n={n}"
         )
-    if Pinv.shape != (n, dp1, dp1):
-        raise ValueError(f"{who}: Pinv shape {tuple(Pinv.shape)}")
-    if edges.pull.dim() != 2 or edges.pull.shape[0] != n:
-        raise ValueError(f"{who}: pull shape {tuple(edges.pull.shape)}")
-    kw, tw = edges.effective_weights()
-    tensors = {
-        "X": X, "hist": hist, "masks": masks, "delays": delays, "Pinv": Pinv,
-        "src": edges.src, "dst": edges.dst, "R": edges.R, "t": edges.t,
-        "kw": kw, "tw": tw, "pull": edges.pull, "offsets": offsets,
-    }
-    want = {"delays": torch.int32, "src": torch.int64, "dst": torch.int64,
-            "pull": torch.int32, "offsets": torch.int32}
-    for name, ten in tensors.items():
-        if ten.device != X.device:
-            raise ValueError(f"{who}: {name} on {ten.device}, X on {X.device}")
-        if ten.dtype != want.get(name, fdt):
-            raise TypeError(f"{who}: {name} is {ten.dtype}, expected {want.get(name, fdt)}")
-        if not ten.is_contiguous():
-            raise ValueError(f"{who}: {name} is not contiguous")
-    return kw, tw
+    if (live is None) != (rel is None):
+        raise ValueError(f"{who}: pass live and rel together")
+    if live is None:
+        return
+    if live.shape != () or live.dtype != torch.int32 or live.device != X.device:
+        raise TypeError(f"{who}: live must be an int32 scalar on {X.device}")
+    if rel.shape != (R,) or rel.dtype != fdt or rel.device != X.device:
+        raise TypeError(f"{who}: rel must be ({R},) {fdt} on {X.device}")
+    if not rel.is_contiguous():
+        raise ValueError(f"{who}: rel is not contiguous")
 
 
 def asapp_tick_fused(
@@ -112,14 +109,18 @@ def asapp_tick_fused(
     Returns (X_new, moved (R,)): moved_k = ‖(X_new − X)·mask_k‖_F; where
     ``live`` is 0, (X, rel).
     """
-    if X.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"asapp_tick_fused: unsupported device {X.device}")
     on_card = X.device.type == "cuda"
     fdt = torch.float32 if on_card else X.dtype
-    kw, tw = _checked(X, hist, masks, Pinv, edges, delays, offsets, fdt)
-    _check_stop(X, masks, live, rel, fdt)
-    if on_card or windows is not None:
-        _check_windows(X, masks, edges, windows)
+    kept = windows.records.get("k3") if windows is not None else None
+    stop = [t for t in (live, rel) if t is not None]
+    key, held = kernels.guard((X, hist, delays, *stop),
+                              (*kernels.solve_operands(Pinv, edges, offsets), masks),
+                              live is None, rel is None)
+    if not kernels.hit(kept, key):
+        _check(X, hist, masks, Pinv, edges, delays, offsets, fdt, live, rel)
+        if on_card or windows is not None:
+            _check_windows(X, masks, edges, windows)
+            windows.records["k3"] = key, held
     if not on_card:
         X_new, moved = asapp_tick_fused_ref(X, hist, masks, Pinv, edges, delays, gamma,
                                             steps_per_tick, use_precond, offsets)
@@ -127,21 +128,7 @@ def asapp_tick_fused(
             return X_new, moved
         return torch.where(live > 0, X_new, X), torch.where(live > 0, moved, rel)
     return _launch(X, hist, Pinv, edges, delays, float(gamma), int(steps_per_tick),
-                   bool(use_precond), kw, tw, windows, live, rel)
-
-
-def _check_stop(X, masks, live, rel, fdt) -> None:
-    who = "asapp_tick_fused"
-    if (live is None) != (rel is None):
-        raise ValueError(f"{who}: pass live and rel together")
-    if live is None:
-        return
-    if live.shape != () or live.dtype != torch.int32 or live.device != X.device:
-        raise TypeError(f"{who}: live must be an int32 scalar on {X.device}")
-    if rel.shape != (masks.shape[0],) or rel.dtype != fdt or rel.device != X.device:
-        raise TypeError(f"{who}: rel must be ({masks.shape[0]},) {fdt} on {X.device}")
-    if not rel.is_contiguous():
-        raise ValueError(f"{who}: rel is not contiguous")
+                   bool(use_precond), windows, live, rel)
 
 
 def _check_windows(X, masks, edges, windows) -> None:
@@ -160,30 +147,29 @@ def _check_windows(X, masks, edges, windows) -> None:
         raise ValueError(f"{who}: the windows' blocks do not cover the {X.shape[0]} poses")
 
 
-def _launch(X, hist, Pinv, edges, delays, gamma, steps, use_precond, kw, tw,
-            windows, live, rel):
+def _launch(X, hist, Pinv, edges, delays, gamma, steps, use_precond, windows, live, rel):
     n, r, dp1 = X.shape
     d = dp1 - 1
     R = windows.num_rows
     nc, P = windows.cluster, windows.slice_max
-    lib = fused_rtr._library(fused_rtr.TICK_SOURCE)
+    kw, tw = windows.effective_weights(edges)
+    lib = kernels.load(kernels.TICK_SOURCE, ENTRIES)
     ws = lib.dpgo_asapp_tick_workspace_floats(
         d, r, windows.max_poses, windows.max_edges, nc, P, R)
     X_out = torch.empty_like(X)  # the robots' blocks cover every pose
     moved = torch.empty(R, dtype=torch.float32, device=X.device)
     work = torch.empty(ws, dtype=torch.float32, device=X.device)
-    p = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
+    p = lambda *ts: [t.data_ptr() if t is not None else None for t in ts]
     with torch.cuda.device(X.device):  # launch on X's card, in its stream
         rc = lib.dpgo_asapp_tick(
             d, r, n, int(windows.pull.shape[1]), R, nc, P, windows.max_poses,
             windows.max_edges, int(hist.shape[0]), steps, int(use_precond),
-            p(X), p(hist), p(delays), p(Pinv), p(edges.R), p(edges.t), p(kw), p(tw),
-            p(windows.meta), p(windows.poses), p(windows.edges), p(windows.src),
-            p(windows.dst), p(windows.pull), p(windows.part), p(live), p(rel),
-            gamma, p(X_out), p(moved), p(work),
-            ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
+            *p(X, hist, delays, Pinv, edges.R, edges.t, kw, tw, windows.meta,
+               windows.poses, windows.edges, windows.src, windows.dst, windows.pull,
+               windows.part, live, rel),
+            gamma, *p(X_out, moved, work), kernels.stream(X.device.index),
         )
-    fused_rtr.check_launch("asapp_tick", rc, nc)
+    kernels.check_launch("asapp_tick", rc, nc)
     profiling.count("k3.launches")  # the CUDA kernel's (not the plain version's)
     return X_out, moved
 

@@ -1,7 +1,5 @@
 """The RTR block solve (K1) and the multi-step runner (K2) as hand-written
-CUDA kernels, and the build of every kernel of the package (K3's wrapper is
-``ops/fused_asapp.py``, K4's ``ops/hbm_rtr.py``, K5's and K6's
-``ops/peak_chains.py``, K7's ``ops/nesterov.py``).
+CUDA kernels.
 
 K1 ports ``dpgo_ros_tpu/ops/fused_rtr.py::rtr_solve_fused`` (the Pallas
 kernel built by ``_make_rtr_kernel``): one masked RTR block solve per
@@ -15,17 +13,16 @@ steps per launch, with the update schedule, the per-robot relative change,
 termination and the GNC weight-round exit inside the kernel; each step
 solves on its bank row's window (``csrc/rtr_run.cu``). Every solver kernel
 (K1–K4) runs the cluster solve of ``csrc/rtr_cluster.cuh``. The sources
-say what bounds them and how they are laid out. Each is compiled with nvcc
-at first use, from the checkout's sources, into ``build/dpgo_ros_tpu_torch/``
-(keyed by a hash of the source, the shared header and the flags), and
-bound through a plain C interface with ctypes.
+say what bounds them and how they are laid out; ``ops/kernels.py`` builds
+and loads them.
 
 :func:`rtr_solve_fused` and :func:`rtr_run_fused` launch their kernel for
 CUDA tensors and raise if it cannot be built or launched, or if they are
 given no windows; for CPU tensors they run the plain versions
 :func:`rtr_solve_fused_ref` and :func:`rtr_run_fused_ref`, built on the
 ported ``rtr_solve``, full-width (the same function). No path falls back
-from one to the other.
+from one to the other. Given windows, each reruns its operand checks only
+when what they read has changed (``kernels.guard``).
 
 K1 stats vector (float32, length 6 + 2·R for R robots):
 ``[f0, f, gn0, gn, TR iterations, tCG iterations,
@@ -39,17 +36,10 @@ launch, tCG iterations of this launch]``.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import operator
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from ctypes import c_float, c_int, c_longlong, c_void_p
+from typing import Optional, Tuple
 
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from dpgo_ros_tpu_torch.models.local_solvers import (
     RGDParams,
@@ -57,150 +47,37 @@ from dpgo_ros_tpu_torch.models.local_solvers import (
     rgd_step,
     rtr_solve,
 )
-from dpgo_ros_tpu_torch.ops import quadratic
+from dpgo_ros_tpu_torch.ops import hbm_rtr, kernels, quadratic
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet
 from dpgo_ros_tpu_torch.utils import profiling
 
 S_F0, S_F, S_GN0, S_GN, S_ITERS, S_TCG = range(6)
 S_MOVED = 6  # [6 : 6+R] per-robot displacement; [6+R : 6+2R] updated flag
 RUN_COST, RUN_ITER, RUN_STEPS, RUN_TCG = range(4)
-MAX_RANK = 8
 
-_PKG = Path(__file__).resolve().parent.parent
-HEADER = _PKG / "csrc" / "rtr_cluster.cuh"  # the cluster solve of K1–K4
-SOURCE = _PKG / "csrc" / "rtr_block.cu"  # K1
-RUN_SOURCE = _PKG / "csrc" / "rtr_run.cu"  # K2
-TICK_SOURCE = _PKG / "csrc" / "asapp_tick.cu"  # K3, wrapped in ops/fused_asapp.py
-WINDOW_SOURCE = _PKG / "csrc" / "rtr_window.cu"  # K4, wrapped in ops/hbm_rtr.py
-PEAK_SOURCE = _PKG / "csrc" / "peak_chains.cu"  # K5, K6, wrapped in ops/peak_chains.py
-EXTRAP_SOURCE = _PKG / "csrc" / "nesterov_extrapolate.cu"  # K7, wrapped in ops/nesterov.py
-ALL_SOURCES = (SOURCE, RUN_SOURCE, TICK_SOURCE, WINDOW_SOURCE, PEAK_SOURCE, EXTRAP_SOURCE)
-BUILD_DIR = _PKG.parent / "build" / "dpgo_ros_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-_libs: Dict[Path, ctypes.CDLL] = {}
+# read by the benchmark's set-up (benchmark/harness.py, benchmark/runners/),
+# which names the kernels it builds by these constants of this module
+build_all = kernels.build_all
+SOURCE = kernels.BLOCK_SOURCE
+RUN_SOURCE = kernels.RUN_SOURCE
+TICK_SOURCE = kernels.TICK_SOURCE
+WINDOW_SOURCE = kernels.WINDOW_SOURCE
+PEAK_SOURCE = kernels.PEAK_SOURCE
+EXTRAP_SOURCE = kernels.EXTRAP_SOURCE
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def _lib_path(source: Path) -> Path:
-    """Library path for ``source``, keyed by a hash of every file it
-    compiles (the source and the shared header) and the flags."""
-    key = hashlib.sha256(
-        source.read_bytes() + HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{key}.so"
-
-
-def build_all(sources: Optional[List[Path]] = None) -> List[Tuple[Path, str]]:
-    """Compile every kernel source whose library is missing, one nvcc per
-    source, all started together. Returns (library path, ptxas report) per
-    source; raises if any nvcc fails."""
-    sources = list(sources) if sources is not None else list(ALL_SOURCES)
-    libs = [_lib_path(src) for src in sources]
-    procs = []
-    for src, lib in zip(sources, libs):
-        if lib.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        procs.append((src, lib, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        )))
-    failed = []
-    for src, lib, tmp, proc in procs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n{err}")
-            continue
-        lib.with_suffix(".log").write_text(err)
-        os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return [
-        (lib, lib.with_suffix(".log").read_text()
-         if lib.with_suffix(".log").exists() else "")
-        for lib in libs
-    ]
-
-
-def build(source: Optional[Path] = None) -> Tuple[Path, str]:
-    """Compile one kernel source (default K1's) unless its library exists.
-    Returns (library path, ptxas report)."""
-    return build_all([source if source is not None else SOURCE])[0]
-
-
-def _library(source: Path) -> ctypes.CDLL:
-    lib = _libs.get(source)
-    if lib is None:
-        path, _ = build(source)
-        lib = ctypes.CDLL(str(path))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if source == EXTRAP_SOURCE:
-            lib.dpgo_nesterov_extrapolate.argtypes = [ci] * 4 + [vp] * 9
-            lib.dpgo_nesterov_extrapolate.restype = ci
-        elif source == PEAK_SOURCE:
-            for fn in (lib.dpgo_peak_chain, lib.dpgo_peak_chain_cml):
-                fn.argtypes = [vp, vp, ci, ci, vp]
-                fn.restype = ci
-        elif source == WINDOW_SOURCE:
-            lib.dpgo_rtr_window_record_bytes.argtypes = []
-            lib.dpgo_rtr_window_record_bytes.restype = ctypes.c_longlong
-            lib.dpgo_rtr_window_record.argtypes = [vp] + [ci] * 9 + [vp] * 6
-            lib.dpgo_rtr_window_record.restype = ci
-            lib.dpgo_rtr_window_bind.argtypes = [vp] * 6 + [ci, ci] + [cf] * 5
-            lib.dpgo_rtr_window_bind.restype = None
-            lib.dpgo_rtr_window_launch.argtypes = [vp] * 6
-            lib.dpgo_rtr_window_launch.restype = ci
-            lib.dpgo_rtr_window_workspace_floats.argtypes = [ci] * 6
-            lib.dpgo_rtr_window_workspace_floats.restype = ctypes.c_longlong
-            lib.dpgo_rtr_window_smem_bytes.argtypes = [ci] * 3
-            lib.dpgo_rtr_window_smem_bytes.restype = ctypes.c_longlong
-        elif source == TICK_SOURCE:
-            lib.dpgo_asapp_tick.argtypes = [ci] * 12 + [vp] * 17 + [cf] + [vp] * 4
-            lib.dpgo_asapp_tick.restype = ci
-            lib.dpgo_asapp_tick_workspace_floats.argtypes = [ci] * 7
-            lib.dpgo_asapp_tick_workspace_floats.restype = ctypes.c_longlong
-        elif source == RUN_SOURCE:
-            lib.dpgo_rtr_run.argtypes = (
-                [ci] * 10 + [vp] * 23 + [ci] * 6 + [cf] * 3
-                + [ci] + [ci, ci] + [cf] * 5 + [vp]
-            )
-            lib.dpgo_rtr_run.restype = ci
-            lib.dpgo_rtr_run_workspace_floats.argtypes = [ci] * 7
-            lib.dpgo_rtr_run_workspace_floats.restype = ctypes.c_longlong
-        else:
-            lib.dpgo_rtr_block_solve.argtypes = (
-                [ci] * 11 + [vp] * 19 + [ci, ci] + [cf] * 5 + [vp]
-            )
-            lib.dpgo_rtr_block_solve.restype = ci
-            lib.dpgo_rtr_block_workspace_floats.argtypes = [ci] * 6
-            lib.dpgo_rtr_block_workspace_floats.restype = ctypes.c_longlong
-        _libs[source] = lib
-    return lib
-
-
-def check_launch(who: str, rc: int, cluster: int = 0) -> None:
-    """Raise unless a launch function returned 0 (cudaSuccess); -1 means no
-    cluster of ``cluster`` CTAs fits on the card."""
-    if rc == -1:
-        raise RuntimeError(
-            f"{who}: no cluster of {cluster} CTAs fits on this card "
-            "(cudaOccupancyMaxActiveClusters is 0)")
-    if rc != 0:
-        raise RuntimeError(f"{who} launch failed: cudaError {rc}")
+# the C entries of K1 (csrc/rtr_block.cu) and K2 (csrc/rtr_run.cu), as
+# kernels.load declares them
+BLOCK_ENTRIES = {
+    "dpgo_rtr_block_solve": (
+        [c_int] * 11 + [c_void_p] * 19 + [c_int] * 2 + [c_float] * 5 + [c_void_p], c_int),
+    "dpgo_rtr_block_workspace_floats": ([c_int] * 6, c_longlong),
+}
+RUN_ENTRIES = {
+    "dpgo_rtr_run": ([c_int] * 10 + [c_void_p] * 23 + [c_int] * 6 + [c_float] * 3
+                     + [c_int] * 3 + [c_float] * 5 + [c_void_p], c_int),
+    "dpgo_rtr_run_workspace_floats": ([c_int] * 7, c_longlong),
+}
 
 
 def rtr_solve_fused(
@@ -228,22 +105,29 @@ def rtr_solve_fused(
     full-width solve; the block's poses agree.
 
     The kernel's operand checks (shapes, devices, layouts) run on both
-    devices; the float32 requirement only where the kernel runs.
+    devices; the float32 requirement only where the kernel runs. Given
+    windows and an int row, they rerun only when what they read has
+    changed (``kernels.guard``: the mask row by the tensor it views).
     """
-    if X.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"rtr_solve_fused: unsupported device {X.device}")
     on_card = X.device.type == "cuda"
-    if offsets is None and windows is not None:
-        offsets = windows.offsets
-    m, kw, tw, offsets = _checked_operands(
-        "rtr_solve_fused", X, mask, Pinv, edges, params, offsets,
-        torch.float32 if on_card else X.dtype,
-    )
-    if on_card or windows is not None:
-        row = _check_window(X, m, edges, offsets, windows, row)
+    n = X.shape[0]
+    m = mask.reshape(n).contiguous()
+    if offsets is None:
+        offsets = (windows.offsets if windows is not None
+                   else torch.tensor([0, n], dtype=torch.int32, device=X.device))
+    kept = windows.records.get(("k1", row)) if (
+        windows is not None and type(row) is int) else None
+    key, held = kernels.guard((X,), kernels.solve_operands(Pinv, edges, offsets),
+                              params, rows=(m,))
+    if not kernels.hit(kept, key):
+        kernels.checked_operands("rtr_solve_fused", X, Pinv, edges, offsets,
+                                 torch.float32 if on_card else X.dtype, params, mask=m)
+        if on_card or windows is not None:
+            row = _check_window(X, m, edges, offsets, windows, row)
+            windows.records[("k1", row)] = key, held
     if not on_card:
         return rtr_solve_fused_ref(X, m, Pinv, edges, params, offsets)
-    return _launch(X, Pinv, edges, params, kw, tw, windows, row)
+    return _launch(X, Pinv, edges, params, windows, row)
 
 
 def _check_window(X, m, edges, offsets, windows, row) -> int:
@@ -255,11 +139,7 @@ def _check_window(X, m, edges, offsets, windows, row) -> int:
         raise ValueError(
             f"{who}: the kernel solves a window: pass windows= and row= "
             "(hbm_rtr.prepare_row_windows or prepare_mask_window)")
-    if isinstance(row, bool):
-        raise TypeError(f"{who}: row must be an integer")
-    row = operator.index(row)
-    if not 0 <= row < windows.num_rows:
-        raise ValueError(f"{who}: row {row} outside 0..{windows.num_rows - 1}")
+    row = kernels.row_index(who, row, windows.num_rows)
     windows.check(who, X, edges)
     if offsets.shape != windows.offsets.shape:
         raise ValueError(
@@ -280,75 +160,34 @@ def _check_window(X, m, edges, offsets, windows, row) -> int:
     return row
 
 
-def _checked_operands(who, X, mask, Pinv, edges, params, offsets, float_dtype):
-    """Raise on operands the kernels cannot take (K1 passes its mask, K2
-    None); returns (flat mask or None, κ_eff, τ_eff, offsets)."""
-    n, r, dp1 = X.shape
-    if dp1 - 1 not in (2, 3):
-        raise ValueError(f"{who}: d={dp1 - 1} (kernel takes 2 or 3)")
-    if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"{who}: r={r} (kernel takes 1..{MAX_RANK})")
-    if not params.use_preconditioner:
-        raise ValueError(f"{who}: the kernel is preconditioned only")
-    if Pinv.shape != (n, dp1, dp1):
-        raise ValueError(f"{who}: Pinv shape {tuple(Pinv.shape)}")
-    if edges.pull.dim() != 2 or edges.pull.shape[0] != n:
-        raise ValueError(f"{who}: pull shape {tuple(edges.pull.shape)}")
-    kw, tw = edges.effective_weights()
-    if offsets is None:
-        offsets = torch.tensor([0, n], dtype=torch.int32, device=X.device)
-    m = mask.reshape(n).contiguous() if mask is not None else None
-    tensors = {
-        "X": X, "Pinv": Pinv, "src": edges.src, "dst": edges.dst,
-        "R": edges.R, "t": edges.t, "kw": kw, "tw": tw, "pull": edges.pull,
-        "offsets": offsets,
-    }
-    if m is not None:
-        tensors["mask"] = m
-    want = {"src": torch.int64, "dst": torch.int64, "pull": torch.int32,
-            "offsets": torch.int32}
-    for name, ten in tensors.items():
-        if ten.device != X.device:
-            raise ValueError(f"{who}: {name} on {ten.device}, X on {X.device}")
-        if ten.dtype != want.get(name, float_dtype):
-            raise TypeError(
-                f"{who}: {name} is {ten.dtype}, expected "
-                f"{want.get(name, float_dtype)}"
-            )
-        if not ten.is_contiguous():
-            raise ValueError(f"{who}: {name} is not contiguous")
-    return m, kw, tw, offsets
-
-
-def _launch(X, Pinv, edges, params, kw, tw, windows, row):
+def _launch(X, Pinv, edges, params, windows, row):
     _, r, dp1 = X.shape
     d = dp1 - 1
     R = windows.num_robots
     poses, eids, lsrc, ldst, pull = windows.window(row)
     robots = windows.robots_of(row)
     nc, P = windows.cluster, windows.slice_max
-    lib = _library(SOURCE)
+    kw, tw = windows.effective_weights(edges)
+    lib = kernels.load(kernels.BLOCK_SOURCE, BLOCK_ENTRIES)
     ws = lib.dpgo_rtr_block_workspace_floats(
         d, r, windows.max_poses, windows.max_edges, nc, P)
     X_out = X.clone()  # the kernel writes the block
     stats = torch.empty(6 + 2 * R, dtype=torch.float32, device=X.device)
     work = torch.empty(ws, dtype=torch.float32, device=X.device)
-    p = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(X.device):  # launch on X's card, in its stream
         rc = lib.dpgo_rtr_block_solve(
             d, r, int(poses.shape[0]), int(eids.shape[0]), int(windows.num_poses[row]),
             int(pull.shape[1]), nc, P, edges.num_edges, int(robots.shape[0]), R,
-            p(X), p(Pinv), p(edges.R), p(edges.t), p(kw), p(tw),
-            p(edges.src), p(edges.dst), p(poses), p(eids), p(lsrc), p(ldst), p(pull),
-            p(windows.part[row]), p(windows.offsets), p(robots),
-            p(X_out), p(stats), p(work),
+            *(t.data_ptr() for t in (
+                X, Pinv, edges.R, edges.t, kw, tw, edges.src, edges.dst, poses, eids,
+                lsrc, ldst, pull, windows.part[row], windows.offsets, robots,
+                X_out, stats, work)),
             int(params.max_iterations), int(params.max_tcg_iterations),
             float(params.gradnorm_tol), float(params.initial_radius),
             float(params.max_radius), float(params.tcg_kappa),
-            float(params.tcg_theta),
-            ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
+            float(params.tcg_theta), kernels.stream(X.device.index),
         )
-    check_launch("rtr_block_solve", rc, nc)
+    kernels.check_launch("rtr_block_solve", rc, nc)
     profiling.count("k1.launches")  # the CUDA kernel's (not the plain version's)
     return X_out, stats
 
@@ -377,12 +216,7 @@ def rtr_solve_fused_ref(
     X_new, res = rtr_solve(X, edges, m3, Pinv, params)
     bounds = [0, n] if offsets is None else [int(o) for o in offsets.tolist()]
     moved, upd = _moved_updated(X, X_new, m3.reshape(n), bounds)
-    head = torch.stack([
-        res.f_init, res.f_opt, res.gradnorm_init, res.gradnorm_opt,
-        torch.tensor(float(res.iterations), dtype=X.dtype, device=X.device),
-        torch.tensor(float(res.tcg_iterations), dtype=X.dtype, device=X.device),
-    ])
-    return X_new, torch.cat([head, moved, upd])
+    return X_new, torch.cat([hbm_rtr.stats_head(res, X.dtype, X.device), moved, upd])
 
 
 # ---------------------------------------------------------------- K2
@@ -444,39 +278,18 @@ def rtr_run_fused(
     plain version's the last solve's full-width f: the same value up to
     fp32 rounding.
     """
-    if X.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"rtr_run_fused: unsupported device {X.device}")
     on_card = X.device.type == "cuda"
     fdt = torch.float32 if on_card else X.dtype
-    n = X.shape[0]
-    _, kw, tw, offsets = _checked_operands(
-        "rtr_run_fused", X, None, Pinv, edges, params, offsets, fdt,
-    )
-    R = offsets.shape[0] - 1
-    if mask_bank.dim() != 2 or mask_bank.shape[1] != n:
-        raise ValueError(f"rtr_run_fused: mask_bank shape {tuple(mask_bank.shape)}")
-    if sched.dim() != 1 or sched.shape[0] < it_cap:
-        raise ValueError(
-            f"rtr_run_fused: sched shape {tuple(sched.shape)} for it_cap {it_cap}"
-        )
-    if adj.shape != (R, R) or rel0.shape != (R,):
-        raise ValueError(
-            f"rtr_run_fused: adj {tuple(adj.shape)} / rel0 {tuple(rel0.shape)} "
-            f"for {R} robots"
-        )
-    if gnc and inner < 1:
-        raise ValueError(f"rtr_run_fused: inner={inner} (must be >= 1)")
-    want = {"mask_bank": (mask_bank, fdt), "sched": (sched, torch.int32),
-            "adj": (adj, fdt), "rel0": (rel0, fdt)}
-    for name, (ten, dt) in want.items():
-        if ten.device != X.device:
-            raise ValueError(f"rtr_run_fused: {name} on {ten.device}, X on {X.device}")
-        if ten.dtype != dt:
-            raise TypeError(f"rtr_run_fused: {name} is {ten.dtype}, expected {dt}")
-        if not ten.is_contiguous():
-            raise ValueError(f"rtr_run_fused: {name} is not contiguous")
-    _check_row_windows(windows, mask_bank, X, edges)
-    _check_sched(sched, it0, it_cap, mask_bank.shape[0])
+    if offsets is None:
+        offsets = torch.tensor([0, X.shape[0]], dtype=torch.int32, device=X.device)
+    slot = ("k2", sched.storage_offset())
+    key, held = kernels.guard(
+        (X, rel0), (*kernels.solve_operands(Pinv, edges, offsets), mask_bank, adj),
+        params, int(it0), int(it_cap), bool(gnc), int(inner), rows=(sched,))
+    if not kernels.hit(windows.records.get(slot), key):
+        _check_run(X, mask_bank, sched, Pinv, edges, params, adj, rel0, offsets,
+                   it0, it_cap, gnc, inner, windows, fdt)
+        windows.records[slot] = key, held
     cost0 = torch.as_tensor(cost0, dtype=fdt, device=X.device).reshape(1)
     run = dict(it0=int(it0), last_wu=int(last_wu), gnc_pending=bool(gnc_pending),
                it_cap=int(it_cap), tol=float(tol), gnc=bool(gnc),
@@ -488,61 +301,51 @@ def rtr_run_fused(
             cost0=cost0, offsets=offsets, **run,
         )
     return _launch_run(X, mask_bank, sched, Pinv, edges, params, adj, rel0,
-                       cost0, offsets, kw, tw, run, windows)
+                       cost0, offsets, run, windows)
 
 
-# banks and schedules whose values were checked (by tensor identity, with
-# the version counter an in-place write bumps, and what they were checked
-# against), so that a caller launching K2 again on the same operands (the
-# engine's one-step RGD updates) reads nothing back for the checks
-_CHECKED = WeakIdKeyDictionary()
-
-
-def _check_sched(sched, it0, it_cap, rows) -> None:
-    """Raise unless every entry of ``sched[it0:it_cap]`` is a bank row (one
-    host read, none for a schedule already checked at this range)."""
-    key = (sched._version, int(it0), int(it_cap), int(rows))
-    if _CHECKED.get(sched) == key:
-        return
-    live = sched[it0:it_cap] if it0 < it_cap else sched[:0]
-    if live.numel():
-        lo, hi = torch.stack([live.min(), live.max()]).tolist()
-        if lo < 0 or hi >= rows:
-            raise ValueError("rtr_run_fused: a sched entry is outside the mask bank")
-    _CHECKED[sched] = key
-
-
-def _check_row_windows(windows, bank, X, edges) -> None:
-    """Raise unless ``windows`` has one window per bank row, of this world,
-    on X's device, each block the size of its row's mask (one host read,
-    none for a bank already checked against these windows)."""
+def _check_run(X, bank, sched, Pinv, edges, params, adj, rel0, offsets, it0, it_cap,
+               gnc, inner, windows, fdt) -> None:
+    """Raise on operands K2 cannot take: the cluster solve's, the bank, the
+    schedule (every entry of ``sched[it0:it_cap]`` a bank row: one host
+    read), the robots' adjacency and rel change, and ``windows`` with one
+    window per bank row, of this world, on X's device, each block the size
+    of its row's mask (one host read)."""
     who = "rtr_run_fused"
+    kernels.checked_operands(who, X, Pinv, edges, offsets, fdt, params, mask_bank=bank,
+                             sched=sched, adj=adj, rel0=rel0)
+    n, R = X.shape[0], offsets.shape[0] - 1
+    if bank.dim() != 2 or bank.shape[1] != n:
+        raise ValueError(f"{who}: mask_bank shape {tuple(bank.shape)}")
+    if sched.dim() != 1 or sched.shape[0] < it_cap:
+        raise ValueError(f"{who}: sched shape {tuple(sched.shape)} for it_cap {it_cap}")
+    if adj.shape != (R, R) or rel0.shape != (R,):
+        raise ValueError(
+            f"{who}: adj {tuple(adj.shape)} / rel0 {tuple(rel0.shape)} for {R} robots")
+    if gnc and inner < 1:
+        raise ValueError(f"{who}: inner={inner} (must be >= 1)")
     if windows.num_rows != bank.shape[0]:
         raise ValueError(
             f"{who}: {windows.num_rows} windows for {bank.shape[0]} bank rows")
     windows.check(who, X, edges)
-    for name in ("poses", "edges", "src", "dst", "pull", "meta", "part", "row_robots"):
-        ten = getattr(windows, name)
-        if ten.device != X.device:
-            raise ValueError(f"{who}: windows.{name} on {ten.device}, X on {X.device}")
-        if ten.dtype != torch.int32 or not ten.is_contiguous():
-            raise TypeError(f"{who}: windows.{name} must be contiguous int32")
-    seen = _CHECKED.get(bank)
-    if seen is not None and seen[0] == bank._version and seen[1] is windows:
-        return
     if (bank > 0).sum(1).tolist() != windows.num_poses.tolist():
         raise ValueError(f"{who}: the windows' blocks are not the bank rows")
-    _CHECKED[bank] = (bank._version, windows)
+    live = sched[it0:it_cap] if it0 < it_cap else sched[:0]
+    if live.numel():
+        lo, hi = torch.stack([live.min(), live.max()]).tolist()
+        if lo < 0 or hi >= bank.shape[0]:
+            raise ValueError(f"{who}: a sched entry is outside the mask bank")
 
 
 def _launch_run(X, bank, sched, Pinv, edges, params, adj, rel0, cost0,
-                offsets, kw, tw, run, windows):
+                offsets, run, windows):
     _, r, dp1 = X.shape
     d = dp1 - 1
     R = offsets.shape[0] - 1
     it_cap = run["it_cap"]
     nc, P = windows.cluster, windows.slice_max
-    lib = _library(RUN_SOURCE)
+    kw, tw = windows.effective_weights(edges)
+    lib = kernels.load(kernels.RUN_SOURCE, RUN_ENTRIES)
     ws = lib.dpgo_rtr_run_workspace_floats(
         d, r, windows.max_poses, windows.max_edges, R, nc, P)
     X_out = X.clone()  # the kernel steps it in place
@@ -553,17 +356,16 @@ def _launch_run(X, bank, sched, Pinv, edges, params, adj, rel0, cost0,
         if run["record"] else None
     )
     work = torch.empty(ws, dtype=torch.float32, device=X.device)
-    p = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
     inner_tol = run["inner_tol"]
     with torch.cuda.device(X.device):  # launch on X's card, in its stream
         rc = lib.dpgo_rtr_run(
             d, r, int(windows.pull.shape[1]), R, int(bank.shape[0]), it_cap, nc, P,
             windows.max_poses, windows.max_edges,
-            p(X_out), p(sched), p(Pinv), p(edges.R), p(edges.t), p(kw), p(tw),
-            p(offsets), p(windows.meta), p(windows.poses), p(windows.edges),
-            p(windows.src), p(windows.dst), p(windows.pull), p(windows.part),
-            p(windows.row_robots), p(adj), p(rel0), p(cost0),
-            p(rel), p(stats), p(rel_hist), p(work),
+            *(t.data_ptr() if t is not None else None for t in (
+                X_out, sched, Pinv, edges.R, edges.t, kw, tw, offsets, windows.meta,
+                windows.poses, windows.edges, windows.src, windows.dst, windows.pull,
+                windows.part, windows.row_robots, adj, rel0, cost0, rel, stats,
+                rel_hist, work)),
             run["it0"], run["last_wu"], int(run["gnc_pending"]), int(run["gnc"]),
             run["inner"], int(inner_tol is not None),
             float(inner_tol if inner_tol is not None else 0.0), run["tol"],
@@ -571,10 +373,9 @@ def _launch_run(X, bank, sched, Pinv, edges, params, adj, rel0, cost0,
             int(params.max_iterations), int(params.max_tcg_iterations),
             float(params.gradnorm_tol), float(params.initial_radius),
             float(params.max_radius), float(params.tcg_kappa),
-            float(params.tcg_theta),
-            ctypes.c_void_p(torch.cuda.current_stream(X.device).cuda_stream),
+            float(params.tcg_theta), kernels.stream(X.device.index),
         )
-    check_launch("rtr_run", rc, nc)
+    kernels.check_launch("rtr_run", rc, nc)
     profiling.count("k2.launches")  # the CUDA kernel's (not the plain version's)
     out = (X_out, rel, stats)
     return out + (rel_hist,) if run["record"] else out

@@ -53,14 +53,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import operator
+from ctypes import c_float, c_int, c_longlong, c_void_p
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams, rtr_solve
-from dpgo_ros_tpu_torch.ops import fused_rtr, quadratic
+from dpgo_ros_tpu_torch.ops import kernels, quadratic
 from dpgo_ros_tpu_torch.ops.quadratic import EdgeSet, build_pull_index
 from dpgo_ros_tpu_torch.utils import profiling
 
@@ -127,12 +127,13 @@ class Windows:
     cluster: int  # CTAs of one launch
     part: torch.Tensor  # (m, cluster+1) int32 slice bounds
     slice_max: int  # most poses in one slice
-    # rtr_solve_hbm's launch record of each row it solved (_Record)
+    # K4's launch record (_Record) of each row it solved; what the checks
+    # of K1 (under ("k1", row)), K2 (("k2", sched offset)) and K3 ("k3")
+    # last passed (kernels.hit)
     records: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
-    # the last effective_weights: (weight, mask, kappa, tau), their
-    # versions, κ_eff, τ_eff
-    _weights: tuple = dataclasses.field(default=(), init=False, repr=False,
+    # the last effective_weights: its guard key, the weights, κ_eff, τ_eff
+    _weights: tuple = dataclasses.field(default=None, init=False, repr=False,
                                         compare=False)
 
     @property
@@ -160,27 +161,26 @@ class Windows:
 
     def check(self, who: str, X: torch.Tensor, edges: EdgeSet) -> None:
         """Raise unless these are windows of X's world (its poses and
-        edges) on X's device."""
+        edges) with their tables contiguous int32 on X's device."""
         if self.n != X.shape[0] or self.num_edges != edges.num_edges:
             raise ValueError(
                 f"{who}: windows of a world of {self.n} poses and "
                 f"{self.num_edges} edges, got {X.shape[0]} and {edges.num_edges}")
         if self.poses.device != X.device:
             raise ValueError(f"{who}: windows on {self.poses.device}, X on {X.device}")
+        tables = ("poses", "edges", "src", "dst", "pull", "meta", "part", "row_robots")
+        kernels.check_tensors(who, X, {f"windows.{name}": getattr(self, name)
+                                       for name in tables}, torch.int32)
 
     def effective_weights(self, edges: EdgeSet) -> Tuple[torch.Tensor, torch.Tensor]:
         """``edges.effective_weights()``, computed once per weight set: kept
         until ``weight``, ``mask``, ``kappa`` or ``tau`` is another tensor
-        or changed in place (its version), and held so that no other
-        tensor can take its id meanwhile."""
-        keys = (edges.weight, edges.mask, edges.kappa, edges.tau)
-        vers = tuple(t._version for t in keys)
-        held = self._weights
-        if not held or held[1] != vers or any(a is not b for a, b in zip(held[0], keys)):
-            kw, tw = edges.effective_weights()
+        or changed in place (``kernels.guard``)."""
+        key, held = kernels.guard((), (edges.weight, edges.mask, edges.kappa, edges.tau))
+        if not kernels.hit(self._weights, key):
+            self._weights = (key, held, *edges.effective_weights())
             profiling.count("k4.weights")
-            held = self._weights = (keys, vers, kw, tw)
-        return held[2], held[3]
+        return self._weights[2:]
 
     def robots_of(self, row: int) -> torch.Tensor:
         """The robots of one row (a view of ``row_robots``)."""
@@ -336,15 +336,19 @@ def rtr_solve_hbm(
 
     Each row keeps a launch record (:class:`_Record`, in
     ``windows.records``) built on its first call. The checks run in full
-    on that call and again whenever what they read has changed: X's shape,
-    dtype, device or layout, the params, or the identity or version of
-    another operand (the guard, one tuple compare).
+    on that call and again whenever what they read has changed
+    (``kernels.guard``, one tuple compare).
     """
-    guard, held = _guard(X, Pinv, edges, params, windows)
+    guard, held = kernels.guard((X,), kernels.solve_operands(Pinv, edges, windows.offsets),
+                                params)
     rec = windows.records.get(robot) if type(robot) is int else None
     fresh = rec is None or guard is None or rec.guard != guard
     if fresh:
-        robot = _checked_robot(X, robot, Pinv, edges, params, windows)
+        kernels.checked_operands("rtr_solve_hbm", X, Pinv, edges, windows.offsets,
+                                 torch.float32 if X.device.type == "cuda" else X.dtype,
+                                 params)
+        windows.check("rtr_solve_hbm", X, edges)
+        robot = kernels.row_index("rtr_solve_hbm", robot, windows.num_rows, "robot")
         rec = windows.records.get(robot)
         if rec is None or rec.shape != X.shape[1:]:
             rec = windows.records[robot] = _Record(windows, robot, X)
@@ -354,38 +358,15 @@ def rtr_solve_hbm(
     return rec.launch(X, Pinv, edges, params, windows, fresh)
 
 
-def _guard(X, Pinv, edges, params, windows):
-    """(what the operand checks read, the tensors it names by id): X's
-    shape, dtype, device and layout, the params, and each other operand's
-    id and version; (None, None) where a tensor keeps no version (made in
-    inference mode), so such calls are checked every time."""
-    held = (Pinv, edges.R, edges.t, edges.src, edges.dst, edges.pull,
-            windows.offsets, edges.weight, edges.mask, edges.kappa, edges.tau)
-    try:
-        vers = [t._version for t in held]
-    except RuntimeError:
-        return None, None
-    return (X.shape, X.dtype, X.device, X.is_contiguous(), params,
-            *map(id, held), *vers), held
-
-
-def _checked_robot(X, robot, Pinv, edges, params, windows) -> int:
-    """Raise on operands the kernel cannot take; returns the row."""
-    if X.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"rtr_solve_hbm: unsupported device {X.device}")
-    fused_rtr._checked_operands(
-        "rtr_solve_hbm", X, None, Pinv, edges, params, windows.offsets,
-        torch.float32 if X.device.type == "cuda" else X.dtype,
-    )
-    windows.check("rtr_solve_hbm", X, edges)
-    if isinstance(robot, bool):
-        raise TypeError("rtr_solve_hbm: robot must be an integer")
-    robot = operator.index(robot)
-    if not 0 <= robot < windows.num_rows:
-        raise ValueError(
-            f"rtr_solve_hbm: robot {robot} outside 0..{windows.num_rows - 1}"
-        )
-    return robot
+# K4's C entries (csrc/rtr_window.cu), as kernels.load declares them
+ENTRIES = {
+    "dpgo_rtr_window_record_bytes": ([], c_longlong),
+    "dpgo_rtr_window_record": ([c_void_p] + [c_int] * 9 + [c_void_p] * 6, c_int),
+    "dpgo_rtr_window_bind": ([c_void_p] * 6 + [c_int] * 2 + [c_float] * 5, None),
+    "dpgo_rtr_window_launch": ([c_void_p] * 6, c_int),
+    "dpgo_rtr_window_workspace_floats": ([c_int] * 6, c_longlong),
+    "dpgo_rtr_window_smem_bytes": ([c_int] * 3, c_longlong),
+}
 
 
 class _Record:
@@ -413,7 +394,7 @@ class _Record:
         d = dp1 - 1
         self.views = poses, eids, _, _, pull, _ = (*windows.window(row), windows.part[row])
         nc, P = windows.cluster, windows.slice_max
-        self.lib = lib = fused_rtr._library(fused_rtr.WINDOW_SOURCE)
+        self.lib = lib = kernels.load(kernels.WINDOW_SOURCE, ENTRIES)
         self.ws = lib.dpgo_rtr_window_workspace_floats(
             d, r, windows.max_poses, windows.max_edges, nc, P)
         self.buf = ctypes.create_string_buffer(lib.dpgo_rtr_window_record_bytes())
@@ -422,7 +403,7 @@ class _Record:
             self.addr, self.card, d, r, int(poses.shape[0]), int(eids.shape[0]),
             int(windows.num_poses[row]), int(pull.shape[1]), nc, P,
             *(t.data_ptr() for t in self.views))
-        fused_rtr.check_launch("rtr_window_solve", rc, nc)
+        kernels.check_launch("rtr_window_solve", rc, nc)
 
     def launch(self, X, Pinv, edges, params, windows, bind):
         kw, tw = windows.effective_weights(edges)
@@ -440,8 +421,8 @@ class _Record:
         work = torch.empty(self.ws, dtype=torch.float32, device=X.device)
         rc = self.lib.dpgo_rtr_window_launch(
             self.addr, X.data_ptr(), X_out.data_ptr(), stats.data_ptr(),
-            work.data_ptr(), torch._C._cuda_getCurrentRawStream(self.card))
-        fused_rtr.check_launch("rtr_window_solve", rc)
+            work.data_ptr(), kernels.stream(self.card))
+        kernels.check_launch("rtr_window_solve", rc)
         profiling.count("k4.launches")  # the CUDA kernel's (not the plain version's)
         return X_out, stats
 
@@ -474,7 +455,9 @@ def _solve_window(X, row, Pinv, edges, params, windows):
     return X_out, res, ((Xw_new[:nb] - Xw[:nb]) ** 2).sum(dim=(-2, -1))
 
 
-def _head(res, dtype, device) -> torch.Tensor:
+def stats_head(res, dtype, device) -> torch.Tensor:
+    """The stats vector's head ``[f0, f, gn0, gn, TR iterations, tCG
+    iterations]`` of an ``rtr_solve`` result, in ``dtype``."""
     count = lambda v: torch.tensor(float(v), dtype=dtype, device=device)
     return torch.stack([res.f_init, res.f_opt, res.gradnorm_init, res.gradnorm_opt,
                         count(res.iterations), count(res.tcg_iterations)])
@@ -492,7 +475,7 @@ def rtr_solve_hbm_ref(
     ``rtr_solve`` on it under the block mask, scatter the block back; the
     same stats vector (in X's dtype). Runs on any device."""
     X_out, res, d2 = _solve_window(X, robot, Pinv, edges, params, windows)
-    return X_out, torch.cat([_head(res, X.dtype, X.device), torch.sqrt(d2.sum())[None]])
+    return X_out, torch.cat([stats_head(res, X.dtype, X.device), torch.sqrt(d2.sum())[None]])
 
 
 def rtr_solve_window_ref(
@@ -513,7 +496,7 @@ def rtr_solve_window_ref(
     outside = torch.ones_like(edges.mask)
     outside[windows.window(row)[1].long()] = 0.0
     f_out = quadratic.cost(X, dataclasses.replace(edges, mask=edges.mask * outside))
-    head = _head(res, X.dtype, X.device)
+    head = stats_head(res, X.dtype, X.device)
     head[:2] += f_out
     R = windows.num_robots
     bounds = windows.offsets.tolist()

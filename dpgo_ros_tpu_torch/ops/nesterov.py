@@ -14,23 +14,27 @@ cannot be built or launched; for CPU tensors it runs the plain version
 ``stiefel.retract_polar_ns`` as the JAX package writes the step. No path
 falls back from one to the other.
 
-On the card the operand checks run once per layout (each operand's device,
-dtype, shape and strides), not on every call; β is read by the kernel from
-the device, so the θ-sequence's β = (θ − 1)/θ' needs no host read. Counter:
+On the card the operand checks run in full only when an operand's layout
+(device, dtype, shape, strides) or the mask's tensor differs from the last
+call's that passed (:func:`checked`); β is read by the kernel from the
+device, so the θ-sequence's β = (θ − 1)/θ' needs no host read. Counter:
 ``k7.launches`` per CUDA launch.
 """
 
 from __future__ import annotations
 
+from ctypes import c_int, c_void_p
 from typing import Tuple, Union
 
 import torch
 
-from dpgo_ros_tpu_torch.ops import fused_rtr, stiefel
+from dpgo_ros_tpu_torch.ops import kernels, stiefel
 from dpgo_ros_tpu_torch.utils import profiling
 
 NS_STEPS = 20  # the kernel's Newton–Schulz steps, retract_polar_ns's default
-_checked: set = set()  # operand layouts that passed check_operands
+# K7's C entry (csrc/nesterov_extrapolate.cu), as kernels.load declares it
+ENTRIES = {"dpgo_nesterov_extrapolate": ([c_int] * 4 + [c_void_p] * 9, c_int)}
+_kept: dict = {}  # "k7": the (key, held) whose checks last passed (kernels.hit)
 
 
 def extrapolate(
@@ -52,23 +56,30 @@ def extrapolate(
         return extrapolate_ref(Z, X, X_prev, V, mask, beta)
     if not isinstance(beta, torch.Tensor):
         raise TypeError("extrapolate: on the card beta is a one-element tensor")
-    ops = (Z, X, X_prev, V, mask, beta)
-    key = tuple((t.device, t.dtype, t.shape, t.stride()) for t in ops)
-    if key not in _checked:
-        if X.device.type != "cuda":
-            raise ValueError(f"extrapolate: unsupported device {X.device}")
-        check_operands("extrapolate", *ops)
-        _checked.add(key)
+    if X.device.type != "cuda":
+        raise ValueError(f"extrapolate: unsupported device {X.device}")
+    checked(Z, X, X_prev, V, mask, beta)
     n, r, dp1 = X.shape
     card = X.device.index
     X_acc, V_new = torch.empty_like(X), torch.empty_like(V)
-    rc = fused_rtr._library(fused_rtr.EXTRAP_SOURCE).dpgo_nesterov_extrapolate(
+    rc = kernels.load(kernels.EXTRAP_SOURCE, ENTRIES).dpgo_nesterov_extrapolate(
         card, dp1 - 1, r, n, Z.data_ptr(), X.data_ptr(), X_prev.data_ptr(),
         V.data_ptr(), mask.data_ptr(), beta.data_ptr(), X_acc.data_ptr(),
-        V_new.data_ptr(), torch._C._cuda_getCurrentRawStream(card))
-    fused_rtr.check_launch("nesterov_extrapolate", rc)
+        V_new.data_ptr(), kernels.stream(card))
+    kernels.check_launch("nesterov_extrapolate", rc)
     profiling.count("k7.launches")  # the CUDA kernel's (not the plain version's)
     return X_acc, V_new
+
+
+def checked(Z, X, X_prev, V, mask, beta) -> None:
+    """The card's operand checks (:func:`check_operands`), rerun only when
+    an operand's layout or the tensor the mask row views has changed (not
+    its row: the checks read no value)."""
+    key, held = kernels.guard((Z, X, X_prev, V, mask, beta),
+                              (mask if mask._base is None else mask._base,))
+    if not kernels.hit(_kept.get("k7"), key):
+        check_operands("extrapolate", Z, X, X_prev, V, mask, beta)
+        _kept["k7"] = key, held
 
 
 def check_operands(who, Z, X, X_prev, V, mask, beta) -> None:
@@ -77,13 +88,8 @@ def check_operands(who, Z, X, X_prev, V, mask, beta) -> None:
     layouts that are not contiguous."""
     if not isinstance(beta, torch.Tensor):
         raise TypeError(f"{who}: beta must be a one-element tensor")
-    if X.dim() != 3:
-        raise ValueError(f"{who}: X shape {tuple(X.shape)}, expected (n, r, d+1)")
-    n, r, dp1 = X.shape
-    if dp1 - 1 not in (2, 3):
-        raise ValueError(f"{who}: d={dp1 - 1} (kernel takes 2 or 3)")
-    if not 1 <= r <= fused_rtr.MAX_RANK:
-        raise ValueError(f"{who}: r={r} (kernel takes 1..{fused_rtr.MAX_RANK})")
+    kernels.check_pose_shape(who, X)
+    n = X.shape[0]
     if n < 1:
         raise ValueError(f"{who}: no poses")
     for name, ten in (("Z", Z), ("X_prev", X_prev), ("V", V)):
@@ -93,14 +99,8 @@ def check_operands(who, Z, X, X_prev, V, mask, beta) -> None:
         raise ValueError(f"{who}: mask shape {tuple(mask.shape)}, expected ({n},)")
     if beta.numel() != 1:
         raise ValueError(f"{who}: beta has {beta.numel()} elements, expected 1")
-    for name, ten in (("Z", Z), ("X", X), ("X_prev", X_prev), ("V", V),
-                      ("mask", mask), ("beta", beta)):
-        if ten.device != X.device:
-            raise ValueError(f"{who}: {name} on {ten.device}, X on {X.device}")
-        if ten.dtype != torch.float32:
-            raise TypeError(f"{who}: {name} is {ten.dtype}, expected torch.float32")
-        if not ten.is_contiguous():
-            raise ValueError(f"{who}: {name} is not contiguous")
+    kernels.check_tensors(who, X, {"Z": Z, "X": X, "X_prev": X_prev, "V": V,
+                                   "mask": mask, "beta": beta}, torch.float32)
 
 
 def extrapolate_ref(Z, X, X_prev, V, mask, beta) -> Tuple[torch.Tensor, torch.Tensor]:

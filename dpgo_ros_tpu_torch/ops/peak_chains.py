@@ -20,11 +20,11 @@ from one to the other.
 
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int, c_void_p
 
 import torch
 
-from dpgo_ros_tpu_torch.ops import fused_rtr
+from dpgo_ros_tpu_torch.ops import kernels
 from dpgo_ros_tpu_torch.utils import profiling
 
 NCHAIN = 8
@@ -42,25 +42,23 @@ def _check(who: str, x: torch.Tensor, n_iter: int) -> None:
     if tuple(x.shape) != (NCHAIN * ROWS, LANES):
         raise ValueError(f"{who}: x shape {tuple(x.shape)}, expected "
                          f"{(NCHAIN * ROWS, LANES)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{who}: x is {x.dtype}, expected torch.float32")
-    if not x.is_contiguous():
-        raise ValueError(f"{who}: x is not contiguous")
+    kernels.check_tensors(who, x, {"x": x}, torch.float32)
     if isinstance(n_iter, bool) or not isinstance(n_iter, int) or n_iter < 0:
         raise ValueError(f"{who}: n_iter must be an int >= 0, got {n_iter!r}")
 
 
+# K5's and K6's C entries (csrc/peak_chains.cu), as kernels.load declares them
+ENTRIES = dict.fromkeys(("dpgo_peak_chain", "dpgo_peak_chain_cml"),
+                        ([c_void_p, c_void_p, c_int, c_int, c_void_p], c_int))
+
+
 def _launch(entry: str, x: torch.Tensor, n_iter: int) -> torch.Tensor:
-    lib = fused_rtr._library(fused_rtr.PEAK_SOURCE)
     out = torch.empty((ROWS, LANES), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):  # launch on x's card, in its stream
-        rc = getattr(lib, entry)(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ROWS * LANES, n_iter,
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-        )
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+        rc = getattr(kernels.load(kernels.PEAK_SOURCE, ENTRIES), entry)(
+            x.data_ptr(), out.data_ptr(), ROWS * LANES, n_iter,
+            kernels.stream(x.device.index))
+    kernels.check_launch(entry, rc)
     return out
 
 

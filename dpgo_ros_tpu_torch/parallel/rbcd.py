@@ -195,9 +195,10 @@ class RBCDEngine:
 
     @functools.cached_property
     def _row_sched(self) -> List[torch.Tensor]:
-        """One-entry K2 schedules, one per bank row (an RGD update's)."""
-        return [torch.tensor([k], dtype=torch.int32, device=self.device)
-                for k in range(self._bank.shape[0])]
+        """One-entry K2 schedules, one per bank row (an RGD update's): rows
+        of one tensor, so that K2 keeps each row's operand checks."""
+        rows = torch.arange(self._bank.shape[0], dtype=torch.int32, device=self.device)
+        return [rows[k:k + 1] for k in range(rows.shape[0])]
 
     @functools.cached_property
     def _rel_zero(self) -> torch.Tensor:
@@ -666,6 +667,22 @@ class RBCDEngine:
             cost=quadratic.cost(st2.X, self._edges(st.weights)),
         )
 
+    @profiling.spanned("rbcd.weight_round")
+    def _weight_round(self, st: RBCDState, X0: Optional[torch.Tensor] = None):
+        """A weight round (:meth:`_weight_update_impl`), the reset after one
+        of the first ``robust_opt_num_resets`` rounds, and the P⁻¹ of the
+        new weights: (state, P⁻¹). The reset is :meth:`_reset`'s
+        re-initialization, or, given ``X0`` (a fused runner's starting
+        state), X0 with its cost under the new weights."""
+        st = self._weight_update_impl(st)
+        if st.weight_update_count <= self.config.robust_opt_num_resets:
+            if X0 is None:
+                st = self._reset(st)
+            else:
+                st = st._replace(X=X0, X_prev=X0, V=X0,
+                                 cost=quadratic.cost(X0, self._edges(st.weights)))
+        return st, self._solver_cache(self._edges(st.weights))
+
     def _round_due(self, it: int, last_wu: int, rel: np.ndarray, wuc: int) -> bool:
         """Whether a weight round fires before global iteration ``it``: on
         the fixed cadence, or, with ``robust_opt_inner_tol``, once every
@@ -720,13 +737,9 @@ class RBCDEngine:
             if gnc and self._round_due(
                 state.iteration, last_wu, rel, state.weight_update_count
             ):
-                with profiling.span("rbcd.weight_round"):
-                    last_wu = state.iteration
-                    state = self._weight_update_impl(state)
-                    history["event"].append((it, "UPDATE_WEIGHT"))
-                    if state.weight_update_count <= cfg.robust_opt_num_resets:
-                        state = self._reset(state)
-                    Pinv = self._solver_cache(self._edges(state.weights))
+                last_wu = state.iteration
+                state, Pinv = self._weight_round(state)
+                history["event"].append((it, "UPDATE_WEIGHT"))
             t0 = time.time()
             state, k, (rel, rc, cost), restarted = self._step(
                 state, int(sched[state.iteration]), Pinv)
@@ -838,19 +851,14 @@ class RBCDEngine:
                 if self._terminated(rel_np, wuc):
                     break
                 if gnc and self._round_due(it, last_wu, rel_np, wuc):
-                    with profiling.span("rbcd.weight_round"):
-                        last_wu = it
-                        s2 = self._weight_update_impl(RBCDState(
-                            X=X, X_prev=X, V=X, theta=st.theta, iteration=it,
-                            cost=cost, rel_change=rel, weights=w, fixed_mask=fixed,
-                            mu=mu, weight_update_count=wuc,
-                        ))
-                        w, fixed, mu = s2.weights, s2.fixed_mask, s2.mu
-                        wuc, cost, rel = s2.weight_update_count, s2.cost, s2.rel_change
-                        if wuc <= cfg.robust_opt_num_resets:
-                            X = X0
-                            cost = quadratic.cost(X, self._edges(w))
-                        Pinv = self._solver_cache(self._edges(w))
+                    last_wu = it
+                    s2, Pinv = self._weight_round(RBCDState(
+                        X=X, X_prev=X, V=X, theta=st.theta, iteration=it,
+                        cost=cost, rel_change=rel, weights=w, fixed_mask=fixed,
+                        mu=mu, weight_update_count=wuc,
+                    ), X0)
+                    X, w, fixed, mu = s2.X, s2.weights, s2.fixed_mask, s2.mu
+                    wuc, cost, rel = s2.weight_update_count, s2.cost, s2.rel_change
                     if record:
                         ev_h[it] = 1
                 out = fused_rtr.rtr_run_fused(
@@ -911,13 +919,8 @@ class RBCDEngine:
                 i = st.iteration
                 fired = gnc and self._round_due(i, last_wu, rel, st.weight_update_count)
                 if fired:
-                    with profiling.span("rbcd.weight_round"):
-                        last_wu = i
-                        st = self._weight_update_impl(st)
-                        if st.weight_update_count <= cfg.robust_opt_num_resets:
-                            st = st._replace(X=X0, X_prev=X0, V=X0, cost=quadratic.cost(
-                                X0, self._edges(st.weights)))
-                        Pinv = self._solver_cache(self._edges(st.weights))
+                    last_wu = i
+                    st, Pinv = self._weight_round(st, X0)
                 st, k, (rel, _, _), restarted = self._step(st, int(sched[i]), Pinv)
                 tcg, restarts = tcg + k, restarts + restarted
                 rel_h[i], ev_h[i] = rel, int(fired)

@@ -70,7 +70,7 @@ import numpy as np
 import torch
 
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_rtr
+from dpgo_ros_tpu_torch.ops import kernels
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
 from dpgo_ros_tpu_torch.scripts import common, roofline
 from dpgo_ros_tpu_torch.scripts.common import log
@@ -254,7 +254,7 @@ def main(argv=None) -> dict:
     log(f"card {card}; world {a.world}, {a.k_chain} chained solves x {a.regions} "
         f"regions of {a.iters} updates, {a.dtype} on {device}")
     if device.type == "cuda":
-        fused_rtr.build_all([fused_rtr.RUN_SOURCE, fused_rtr.WINDOW_SOURCE])
+        kernels.build_all([kernels.RUN_SOURCE, kernels.WINDOW_SOURCE])
     data, _, _, stand_in = roofline.load_world(a.world)
     routes = {}
     for label, (rule, runner) in ROUTES.items():

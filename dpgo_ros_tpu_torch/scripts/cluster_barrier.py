@@ -28,10 +28,10 @@ from typing import Dict
 
 import torch
 
-from dpgo_ros_tpu_torch.ops import fused_rtr
+from dpgo_ros_tpu_torch.ops import kernels
 from dpgo_ros_tpu_torch.scripts import measure_peaks
 
-SOURCE = fused_rtr._PKG / "csrc" / "cluster_barrier.cu"
+SOURCE = kernels.CSRC / "cluster_barrier.cu"
 # the clusters K2 and K4 take on chip_smoke's worlds (2–3 CTAs on the
 # 2,500-pose robot windows, 7 on a Parallel colour, 14–15 at 50,000
 # poses) and the portable and non-portable maxima
@@ -41,11 +41,8 @@ MODES = {"four_barriers": 0, "tcg_sync": 1, "one_reduction": 2}
 
 
 def _lib() -> ctypes.CDLL:
-    path, _ = fused_rtr.build(SOURCE)
-    lib = ctypes.CDLL(str(path))
-    lib.dpgo_cluster_barrier.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    lib.dpgo_cluster_barrier.restype = ctypes.c_int
-    return lib
+    return kernels.load(SOURCE, {"dpgo_cluster_barrier": (
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2, ctypes.c_int)})
 
 
 def launch(lib: ctypes.CDLL, nc: int, iters: int, mode: int, out: torch.Tensor) -> None:
@@ -53,7 +50,7 @@ def launch(lib: ctypes.CDLL, nc: int, iters: int, mode: int, out: torch.Tensor) 
     rc = lib.dpgo_cluster_barrier(
         nc, iters, mode, ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    fused_rtr.check_launch("cluster_barrier", rc, nc)
+    kernels.check_launch("cluster_barrier", rc, nc)
 
 
 def slope_us(lib: ctypes.CDLL, nc: int, mode: int) -> Dict[str, float]:

@@ -69,7 +69,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_rtr
+from dpgo_ros_tpu_torch.ops import kernels
 from dpgo_ros_tpu_torch.scripts import measure_peaks, roofline
 from dpgo_ros_tpu_torch.utils import profiling
 
@@ -134,7 +134,7 @@ def child(arm: str, traces: int, heavy_s: float, session: str, long_s: float,
     """One process's run of ``arm`` (without its suffix)."""
     padded = profiling.padded_profile if session == "padded" else raw_padded_profile
     if arm == "build_in_session":
-        fused_rtr.BUILD_DIR = fused_rtr.BUILD_DIR / f"private_{os.getpid()}"
+        kernels.BUILD_DIR = kernels.BUILD_DIR / f"private_{os.getpid()}"
     data, _ = roofline.load_data("sphere2500")
     prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cuda")
     X0, Pinv = roofline.init_state(prob)
@@ -189,7 +189,7 @@ def child(arm: str, traces: int, heavy_s: float, session: str, long_s: float,
                 torch.cuda.synchronize()
         out["prelude"] = traced(busy)
     elif arm == "spawn_in_session":
-        out["prelude"] = traced(lambda: (subprocess.run([fused_rtr._nvcc(), "--version"],
+        out["prelude"] = traced(lambda: (subprocess.run([kernels.nvcc(), "--version"],
                                                         capture_output=True), one()))
     elif arm == "after_empty":
         out["prelude"] = traced(lambda: None)
@@ -262,7 +262,7 @@ def main(argv=None) -> dict:
            not in ("", *ENV, *FLAGS)]
     if bad:
         p.error(f"unknown arms {bad}")
-    fused_rtr.build_all()
+    kernels.build_all()
     # interleaved, so that every arm meets the same load on the card
     order = [arm for _ in range(a.procs) for arm in arms]
     t0 = time.time()

@@ -30,7 +30,7 @@ import time
 import torch
 
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_rtr
+from dpgo_ros_tpu_torch.ops import kernels
 from dpgo_ros_tpu_torch.scripts import measure_peaks, roofline
 
 
@@ -65,7 +65,7 @@ def main(argv=None) -> dict:
     a = p.parse_args(argv)
     measure_peaks.require_cuda("trace_pad")
     pads = [float(x) for x in a.pads.split(",")]
-    fused_rtr.build_all()
+    kernels.build_all()
     data, _ = roofline.load_data("sphere2500")
     prob = LiftedProblem.from_data(data, r=5, dtype=torch.float32, device="cuda")
     X0, Pinv = roofline.init_state(prob)

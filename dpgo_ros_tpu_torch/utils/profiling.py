@@ -87,9 +87,9 @@ def _warm_up(pad: float) -> None:
     global _warmed_up
     if _warmed_up:
         return
-    from dpgo_ros_tpu_torch.ops import fused_rtr
+    from dpgo_ros_tpu_torch.ops import kernels
 
-    fused_rtr.build_all()
+    kernels.build_all()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         time.sleep(pad)

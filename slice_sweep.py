@@ -25,7 +25,7 @@ import sys
 from unittest import mock
 
 import chip_smoke as cs
-from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr
+from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, kernels
 from dpgo_ros_tpu_torch.scripts import measure_peaks
 
 # 128 cuts the 50k windows nearly by pose count
@@ -59,7 +59,7 @@ def main() -> int:
     measure_peaks.require_cuda("slice_sweep")
     card = measure_peaks.card_line()
     print(f"card: {card}", flush=True)
-    fused_rtr.build_all([fused_rtr.RUN_SOURCE, fused_rtr.WINDOW_SOURCE])
+    kernels.build_all([kernels.RUN_SOURCE, kernels.WINDOW_SOURCE])
     out = sweep()
     print(json.dumps({"card": card, "pose_work": hbm_rtr.POSE_WORK,
                       "ms_by_slice_weight": {str(k): list(v) for k, v in out.items()}}))

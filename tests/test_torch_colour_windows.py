@@ -36,7 +36,7 @@ from dpgo_ros_tpu.ops import fused_rtr as j_fused
 from dpgo_ros_tpu_torch.io.synthetic import generate_world
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, quadratic, stiefel
+from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, kernels, quadratic, stiefel
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
 from dpgo_ros_tpu_torch.utils import profiling
 from dpgo_ros_tpu_torch.utils.config import AgentConfig, UpdateRule
@@ -234,8 +234,9 @@ def test_wrapper_rejects_a_mask_that_is_not_the_rows_block(sphere, bad):
         row = None
     if bad in ("no-windows", "no-row"):
         # the CPU path needs no windows; the card's always checks them
-        m, *_ = fused_rtr._checked_operands("t", X, mask, Pinv, tp.edges, RTRParams(**DEMO),
-                                            eng._offsets, X.dtype)
+        m = mask.reshape(-1).contiguous()
+        kernels.checked_operands("t", X, Pinv, tp.edges, eng._offsets, X.dtype,
+                                 RTRParams(**DEMO), mask=m)
         with pytest.raises(err, match="windows= and row="):
             fused_rtr._check_window(X, m, tp.edges, eng._offsets, w, row)
         return

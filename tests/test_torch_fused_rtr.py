@@ -19,7 +19,7 @@ from dpgo_ros_tpu.ops import fused_rtr as j_fused
 from dpgo_ros_tpu.ops import quadratic as j_quad
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams, rtr_solve
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, quadratic, stiefel
+from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, kernels, quadratic, stiefel
 from dpgo_ros_tpu_torch.utils import profiling
 from torch_parity import noisy_lifted_gt, random_state, rel_err, world
 
@@ -158,11 +158,10 @@ def test_build_failure_raises(tmp_path, monkeypatch):
     """A kernel that does not compile raises; nothing falls back."""
     src = tmp_path / "broken.cu"
     src.write_text("this is not CUDA\n")
-    monkeypatch.setattr(fused_rtr, "SOURCE", src)
-    monkeypatch.setattr(fused_rtr, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(fused_rtr, "_nvcc", lambda: "false")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        fused_rtr.build()
+        kernels.build_all([src])
 
 
 @pytest.mark.cuda

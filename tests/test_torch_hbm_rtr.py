@@ -43,7 +43,7 @@ from dpgo_ros_tpu.utils.config import (
 from dpgo_ros_tpu_torch.io.synthetic import add_random_loop_closures, generate_world
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams, rtr_solve
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, quadratic, stiefel
+from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr, kernels, quadratic, stiefel
 from dpgo_ros_tpu_torch.parallel import rbcd
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
 from dpgo_ros_tpu_torch.utils import profiling
@@ -354,8 +354,8 @@ def test_one_launch_record_per_windows_and_row(sphere_cpu, monkeypatch):
     X = _on_manifold_state(world("sphere256")[1], seed=3)
     Pinv = torch.eye(4, dtype=torch.float64).expand(tp.n, 4, 4).contiguous()
     checks = []
-    real = fused_rtr._checked_operands
-    monkeypatch.setattr(fused_rtr, "_checked_operands",
+    real = kernels.checked_operands
+    monkeypatch.setattr(kernels, "checked_operands",
                         lambda *a: checks.append(a[0]) or real(*a))
     count = lambda: profiling.counters().get("k4.records", 0)
     solve = lambda w, robot=0, P=Pinv, params=QUICK, e=tp.edges: hbm_rtr.rtr_solve_hbm(
@@ -388,8 +388,8 @@ def test_operands_made_in_inference_mode_are_checked_every_call(sphere_cpu, monk
     tp = sphere_cpu
     X = _on_manifold_state(world("sphere256")[1], seed=3)
     checks = []
-    real = fused_rtr._checked_operands
-    monkeypatch.setattr(fused_rtr, "_checked_operands",
+    real = kernels.checked_operands
+    monkeypatch.setattr(kernels, "checked_operands",
                         lambda *a: checks.append(a[0]) or real(*a))
     w = hbm_rtr.prepare_windows(tp)
     with torch.inference_mode():
@@ -434,10 +434,10 @@ def test_effective_weights_once_per_weight_set(sphere_cpu, change):
 def test_build_all_lists_k4_and_a_failing_build_raises(tmp_path, monkeypatch):
     """build_all() compiles K4 with the other kernels; an nvcc that fails
     raises and names the source; nothing falls back."""
-    monkeypatch.setattr(fused_rtr, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(fused_rtr, "_nvcc", lambda: "false")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed") as err:
-        fused_rtr.build_all()
+        kernels.build_all()
     for src in ("rtr_block.cu", "rtr_run.cu", "asapp_tick.cu", "rtr_window.cu"):
         assert src in str(err.value)
 

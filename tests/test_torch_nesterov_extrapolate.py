@@ -20,7 +20,7 @@ import torch
 
 from dpgo_ros_tpu_torch.io.synthetic import generate_world
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_rtr, nesterov, stiefel
+from dpgo_ros_tpu_torch.ops import kernels, nesterov, stiefel
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
 from dpgo_ros_tpu_torch.utils import profiling
 from dpgo_ros_tpu_torch.utils.config import AgentConfig, InitMethod, UpdateRule
@@ -134,7 +134,7 @@ def test_checks_reject_operands_the_kernel_cannot_take(bad):
     elif bad == "device":
         ops[1] = ops[1].to("meta")
     elif bad == "rank":
-        ops[:4] = [torch.zeros(100, fused_rtr.MAX_RANK + 1, 4) for _ in range(4)]
+        ops[:4] = [torch.zeros(100, kernels.MAX_RANK + 1, 4) for _ in range(4)]
     elif bad == "d":
         ops[:4] = [torch.zeros(100, 5, 5) for _ in range(4)]
     elif bad == "beta_float":
@@ -154,13 +154,13 @@ def test_wrapper_refuses_a_device_it_has_no_kernel_for():
 def test_build_all_lists_k7(tmp_path, monkeypatch):
     """build_all() compiles K7 with the other kernels; a failing nvcc names
     the source and raises."""
-    monkeypatch.setattr(fused_rtr, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(fused_rtr, "_nvcc", lambda: "false")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed") as err:
-        fused_rtr.build_all()
+        kernels.build_all()
     assert "nesterov_extrapolate.cu" in str(err.value)
-    assert fused_rtr.EXTRAP_SOURCE in fused_rtr.ALL_SOURCES
-    assert "int dpgo_nesterov_extrapolate(" in fused_rtr.EXTRAP_SOURCE.read_text()
+    assert kernels.EXTRAP_SOURCE in kernels.ALL_SOURCES
+    assert "int dpgo_nesterov_extrapolate(" in kernels.EXTRAP_SOURCE.read_text()
 
 
 def test_launches_count_k7():
@@ -220,7 +220,7 @@ def test_kernel_matches_plain_version_on_card(monkeypatch, beta_kind):
     ops = [t.cuda() for t in _operands(dtype=torch.float32, beta_kind=beta_kind)[:6]]
     checks = []
     real = nesterov.check_operands
-    monkeypatch.setattr(nesterov, "_checked", set())
+    monkeypatch.setattr(nesterov, "_kept", {})
     monkeypatch.setattr(nesterov, "check_operands",
                         lambda *a: checks.append(a[0]) or real(*a))
     before = profiling.launches()["k7"]

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from dpgo_ros_tpu_torch.ops import fused_rtr, peak_chains
+from dpgo_ros_tpu_torch.ops import kernels, peak_chains
 from dpgo_ros_tpu_torch.ops.peak_chains import LANES, NCHAIN, ROWS
 from dpgo_ros_tpu_torch.scripts import measure_peaks
 from dpgo_ros_tpu_torch.utils import profiling
@@ -124,12 +124,12 @@ def test_wrapper_rejects_operands_the_kernel_cannot_take(bad):
 def test_build_all_lists_the_chains(tmp_path, monkeypatch):
     """build_all() compiles K5/K6 with the other kernels; a failing nvcc
     names the source and raises."""
-    monkeypatch.setattr(fused_rtr, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(fused_rtr, "_nvcc", lambda: "false")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed") as err:
-        fused_rtr.build_all()
+        kernels.build_all()
     assert "peak_chains.cu" in str(err.value)
-    src = fused_rtr.PEAK_SOURCE.read_text()
+    src = kernels.PEAK_SOURCE.read_text()
     assert "dpgo_peak_chain(" in src and "dpgo_peak_chain_cml(" in src
 
 

@@ -17,7 +17,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from dpgo_ros_tpu_torch.ops import fused_rtr, hbm_rtr
+from dpgo_ros_tpu_torch.ops import hbm_rtr, kernels
 from dpgo_ros_tpu_torch.scripts import cluster_barrier
 
 REPO = Path(__file__).resolve().parent.parent
@@ -41,7 +41,7 @@ def test_barrier_probe_runs_the_solves_reductions():
     assert '#include "rtr_cluster.cuh"' in src
     assert "cluster_sum<1>" in src and "cluster_sum<4>" in src and "cluster_sum<2>" in src
     assert re.search(r"int dpgo_cluster_barrier\(int nc, int iters, int mode", src)
-    assert cluster_barrier.SOURCE not in fused_rtr.ALL_SOURCES  # no path launches it
+    assert cluster_barrier.SOURCE not in kernels.ALL_SOURCES  # no path launches it
     assert set(cluster_barrier.MODES.values()) == {0, 1, 2}
     # the clusters chip_smoke's worlds take are among those measured
     assert {2, 3, 7, 14, 15} <= set(cluster_barrier.CLUSTERS)

@@ -104,14 +104,14 @@ def test_profile_dir_writes_a_trace(tmp_path, monkeypatch, mode):
 def cuda_stubbed(monkeypatch):
     """A fresh process's profiling state, CUDA's synchronize and spin
     kernel stubbed, and the kernel build counted."""
-    from dpgo_ros_tpu_torch.ops import fused_rtr
+    from dpgo_ros_tpu_torch.ops import kernels
 
     calls = {"build": 0, "check": 0}
     monkeypatch.setattr(profiling, "_warmed_up", False)
     monkeypatch.setattr(profiling, "longest_session_s", 0.0)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
-    monkeypatch.setattr(fused_rtr, "build_all", lambda: calls.__setitem__(
+    monkeypatch.setattr(kernels, "build_all", lambda: calls.__setitem__(
         "build", calls["build"] + 1))
     monkeypatch.setattr(profiling, "check_warm_up", lambda events: calls.__setitem__(
         "check", calls["check"] + 1))

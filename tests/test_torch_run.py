@@ -34,7 +34,7 @@ from dpgo_ros_tpu.utils.config import (
 )
 from dpgo_ros_tpu_torch.models.local_solvers import RTRParams
 from dpgo_ros_tpu_torch.models.problem import LiftedProblem
-from dpgo_ros_tpu_torch.ops import fused_rtr
+from dpgo_ros_tpu_torch.ops import fused_rtr, kernels
 from dpgo_ros_tpu_torch.parallel.rbcd import RBCDEngine
 from dpgo_ros_tpu_torch.utils import profiling
 from torch_parity import noisy_lifted_gt, port_config, rel_err, world
@@ -231,22 +231,22 @@ def test_run_build_failure_raises(tmp_path, monkeypatch):
     """A K2 source that does not compile raises; nothing falls back."""
     src = tmp_path / "rtr_run.cu"
     src.write_text("this is not CUDA\n")
-    monkeypatch.setattr(fused_rtr, "RUN_SOURCE", src)
-    monkeypatch.setattr(fused_rtr, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(fused_rtr, "_nvcc", lambda: "false")
+    monkeypatch.setattr(kernels, "RUN_SOURCE", src)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernels, "nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        fused_rtr.build_all()
+        kernels.build_all()
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        fused_rtr.build(src)
+        kernels.build_all([src])
 
 
 def test_build_key_hashes_every_compiled_file(tmp_path, monkeypatch):
     """Editing the shared header changes both libraries' names."""
-    before = [fused_rtr._lib_path(s) for s in (fused_rtr.SOURCE, fused_rtr.RUN_SOURCE)]
+    before = [kernels.lib_path(s) for s in (kernels.BLOCK_SOURCE, kernels.RUN_SOURCE)]
     hdr = tmp_path / "rtr_cluster.cuh"
-    hdr.write_bytes(fused_rtr.HEADER.read_bytes() + b"\n// edited\n")
-    monkeypatch.setattr(fused_rtr, "HEADER", hdr)
-    after = [fused_rtr._lib_path(s) for s in (fused_rtr.SOURCE, fused_rtr.RUN_SOURCE)]
+    hdr.write_bytes(kernels.HEADER.read_bytes() + b"\n// edited\n")
+    monkeypatch.setattr(kernels, "HEADER", hdr)
+    after = [kernels.lib_path(s) for s in (kernels.BLOCK_SOURCE, kernels.RUN_SOURCE)]
     assert all(a != b for a, b in zip(after, before))
     assert len(set(after)) == 2
 
